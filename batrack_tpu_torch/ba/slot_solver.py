@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from batrack_tpu_torch.ba.solver import robust_weight
 from batrack_tpu_torch.geometry import se3
@@ -77,6 +78,14 @@ def slot_ba_iteration(
     return poses_out, p_fm.reshape(Nf * M, 3)
 
 
+def _all_reduce_sum(mesh, *parts: torch.Tensor):
+    """The parts summed over the ranks, through one all_reduce of one flat
+    buffer (one collective per Gauss-Newton step)."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    dist.all_reduce(flat, group=mesh.group)
+    return tuple(x.view_as(p) for x, p in zip(flat.split([p.numel() for p in parts]), parts))
+
+
 def _damped_solve(Sm: torch.Tensor, y: torch.Tensor, ep: float, lm: float) -> torch.Tensor:
     """Cholesky solve of (Sm + diag(ep + lm * diag(Sm))) x = y; NaN where
     the factorization fails (what the JAX package's cho_factor yields)."""
@@ -107,8 +116,19 @@ def slot_ba_iteration_fm(
     alpha: float = 0.05,
     loss: str = "huber",
     structure_only: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One damped Gauss-Newton step over the dense slot graph."""
+    """One damped Gauss-Newton step over the dense slot graph.
+
+    With `mesh` set (the JAX package's axis_name with shard_mode="patches")
+    the patch axis M of patches_fm, monodisp_fm and the graph is this
+    rank's shard of the patches of every frame (parallel/sharded_slot_ba.py):
+    the per-patch pieces C, w and E are complete locally, and the pose
+    blocks B, v and the Schur terms E Q E^T and E Q w are summed over the
+    ranks by one all_reduce of one flat buffer before the replicated pose
+    solve; the depth update stays local. The JAX package's
+    shard_mode="slots" (groups split across ranks) has no caller in either
+    package and is not ported."""
     R, NS, M, S, _ = graph.targets.shape
     W = window
     PF = patch_window
@@ -302,6 +322,8 @@ def slot_ba_iteration_fm(
         E2 = E_mat.transpose(1, 2).reshape(W * 6, K)
         EQE = (E2 * Q[None, :]) @ E2.T
         Ew = E2 @ (Q * w_adj)
+        if mesh is not None:
+            B, vvec, EQE, Ew = _all_reduce_sum(mesh, B, vvec, EQE, Ew)
         Sm = B.permute(0, 2, 1, 3).reshape(W * 6, W * 6) - EQE
         y = vvec.reshape(W * 6) - Ew
 

@@ -1,21 +1,31 @@
-// K2: multi-head softmax attention read straight from the packed qkv
-// projection, for Hopper.
+// K2 and K3: softmax attention with head dim 48 for Hopper, read straight
+// from strided q, k and v rows.
 //
-// Replaces the TPU kernel batrack_tpu/ops/pallas_attention.py::_fused_qkv_kernel.
-// Input (B, N, 3C) holds q | k | v, each C = heads * hd wide; output
-// (B, N, C) has the heads merged, ready for the output projection. Heads are
-// split and merged by addressing inside the kernel, so no (B, h, N, hd) copy
-// is ever made in device memory. Keys where the optional (N,) key mask is 0
-// get the logit -1e30, as on the TPU; logits, softmax and the output sums
-// are float32.
+// Replaces the TPU kernels batrack_tpu/ops/pallas_attention.py::
+// _fused_qkv_kernel (K2, entry point fused_qkv_attention) and ::_attn_kernel
+// (K3, entry point vmem_attention). One kernel template serves every call
+// site, since they differ only in where the rows of q, k and v start:
+//   K2 packed   q | k | v of the (B, N, 3C) qkv projection, row stride 3C;
+//   K2 kv=      queries from qkv as above, keys and values from a separate
+//               (B, Nk, 2C) slim or (B, Nk, 3C) packed source (row stride
+//               2C or 3C, keys at lane 0 or C, values C lanes after them)
+//               with its own key count Nk and key mask (Nk,): the
+//               track-sharded space attention, local queries against the
+//               keys and values gathered from every rank;
+//   K3          one head (C = 48) of separate (B, N, 48) q, k and v arrays.
+// The output (B, N, C) has the heads merged. Heads are split and merged by
+// addressing inside the kernel, so no (B, h, N, hd) copy is ever made in
+// device memory. Keys where the optional key mask is 0 get the logit -1e30,
+// as on the TPU; logits, softmax and the output sums are float32.
 //
 // Bound on the H100 at the davis_demo shape (12, 2400, 1152) bf16: about
 // 106 GFLOP of QK^T and PV against 88 MB of input and output, so it is
 // bound by operations (~0.11 ms at the bf16 tensor-core peak; the 553 M
-// exponentials need ~0.14 ms of the special-function units). Design: the
-// usual GPU shape, not the TPU's whole-row softmax that only fits in VMEM:
-// one block per (batch, head, tile of queries), a loop over key tiles staged
-// in shared memory, and an online softmax in float32.
+// exponentials need ~0.14 ms of the special-function units). K3 at
+// (96, 2400, 48) does the same work. Design: the usual GPU shape, not the
+// TPU's whole-row softmax that only fits in VMEM: one block per (batch,
+// head, tile of queries), a loop over key tiles staged in shared memory,
+// and an online softmax in float32.
 //
 // bf16 (the production path): four warps of 16 queries each, 64-key tiles,
 // both products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
@@ -23,7 +33,7 @@
 // and V transposed, both with padded rows so the fragment loads hit 32
 // distinct banks; the unnormalised probabilities go from the QK^T
 // accumulators straight into the A fragments of PV, cast to bf16 (the TPU
-// kernel also casts p to v's type for PV) and the row sums stay float32.
+// kernels also cast p to v's type for PV) and the row sums stay float32.
 // No cp.async/TMA pipelining and no wgmma yet.
 //
 // float32 (parity runs): one query per thread with its q and output rows
@@ -38,51 +48,63 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kHeadDim = 48;  // the tracker's: hidden 384 over 8 heads
+
+// Where the rows live. Strides are in elements; q, k, v and out already
+// point at lane 0 of head 0 of batch 0.
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const uint8_t* key_mask;  // (Nk,) or null
+  void* out;
+  int N, Nk;                // queries and keys per batch row
+  int q_stride, kv_stride, o_stride;
+  float scale;
+};
 
 // ------------------------------------------------------------- float32
 constexpr int kBQ = 128;  // queries per block, one per thread
 constexpr int kBK = 32;   // keys per shared-memory tile
 
 template <int HD>
-__global__ void __launch_bounds__(kBQ)
-attention_f32_kernel(const float* __restrict__ qkv,
-                     const uint8_t* __restrict__ key_mask,
-                     float* __restrict__ out, int N, int C, float scale) {
+__global__ void __launch_bounds__(kBQ) attention_f32_kernel(const AttnArgs a) {
   __shared__ __align__(16) float Ks[kBK][HD];
   __shared__ __align__(16) float Vs[kBK][HD];
   __shared__ float Kf[kBK];  // 0 live, 1 masked (-1e30), 2 past the end (-inf)
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int qi = blockIdx.x * kBQ + threadIdx.x;
-  const bool qvalid = qi < N;
-  const long long row = 3LL * C;
-  const float* base = qkv + (long long)b * N * row;
-  const int hoff = h * HD;
+  const bool qvalid = qi < a.N;
+  const float* qb = static_cast<const float*>(a.q) + (long long)b * a.N * a.q_stride + h * HD;
+  const long long kvb = (long long)b * a.Nk * a.kv_stride + h * HD;
+  const float* kb = static_cast<const float*>(a.k) + kvb;
+  const float* vb = static_cast<const float*>(a.v) + kvb;
 
   float q[HD], o[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) {
-    q[c] = qvalid ? base[(long long)qi * row + hoff + c] : 0.f;
+    q[c] = qvalid ? qb[(long long)qi * a.q_stride + c] : 0.f;
     o[c] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += kBK) {
+  for (int k0 = 0; k0 < a.Nk; k0 += kBK) {
     for (int e = threadIdx.x; e < kBK * HD; e += kBQ) {
       const int r = e / HD, c = e % HD;
       const int kr = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (kr < N) {
-        const float* src = base + (long long)kr * row + hoff + c;
-        kv = src[C];
-        vv = src[2 * C];
+      if (kr < a.Nk) {
+        kv = kb[(long long)kr * a.kv_stride + c];
+        vv = vb[(long long)kr * a.kv_stride + c];
       }
       Ks[r][c] = kv;
       Vs[r][c] = vv;
     }
     if (threadIdx.x < kBK) {
       const int kr = k0 + threadIdx.x;
-      Kf[threadIdx.x] = kr >= N ? 2.f : ((key_mask != nullptr && key_mask[kr] == 0) ? 1.f : 0.f);
+      Kf[threadIdx.x] =
+          kr >= a.Nk ? 2.f : ((a.key_mask != nullptr && a.key_mask[kr] == 0) ? 1.f : 0.f);
     }
     __syncthreads();
 
@@ -94,13 +116,13 @@ attention_f32_kernel(const float* __restrict__ qkv,
         float acc = 0.f;
 #pragma unroll
         for (int c = 0; c < HD; ++c) acc = fmaf(q[c], Ks[j][c], acc);
-        acc *= scale;
+        acc *= a.scale;
         const float f = Kf[j];
         acc = f == 0.f ? acc : (f == 1.f ? -1e30f : -INFINITY);
         s[j] = acc;
         tmax = fmaxf(tmax, acc);
       }
-      const float m_new = fmaxf(m, tmax);  // finite: every tile has a key < N
+      const float m_new = fmaxf(m, tmax);  // finite: every tile has a key < Nk
       const float corr = expf(m - m_new);
       l *= corr;
 #pragma unroll
@@ -119,7 +141,7 @@ attention_f32_kernel(const float* __restrict__ qkv,
 
   if (qvalid) {
     const float inv = 1.f / l;
-    float* dst = out + ((long long)b * N + qi) * C + hoff;
+    float* dst = static_cast<float*>(a.out) + ((long long)b * a.N + qi) * a.o_stride + h * HD;
 #pragma unroll
     for (int c = 0; c < HD; ++c) dst[c] = o[c] * inv;
   }
@@ -152,11 +174,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 // rows g and g+8, columns 2t, 2t+1 (+8); B holds rows 2t, 2t+1 (+8) of
 // column g; the accumulator holds rows g and g+8, columns 2t and 2t+1.
 template <int HD>
-__global__ void __launch_bounds__(32 * kWarps)
-attention_bf16_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                          const uint8_t* __restrict__ key_mask,
-                          __nv_bfloat16* __restrict__ out, int N, int C,
-                          float scale_log2) {
+__global__ void __launch_bounds__(32 * kWarps) attention_bf16_mma_kernel(const AttnArgs a) {
   constexpr int KSTR = HD + 8;   // padded rows: conflict-free fragment loads
   constexpr int VSTR = kMK + 8;
   constexpr int QK_STEPS = HD / 16;
@@ -170,38 +188,42 @@ attention_bf16_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y;
-  const long long row = 3LL * C;
-  const __nv_bfloat16* base = qkv + (long long)b * N * row + h * HD;
+  const __nv_bfloat16* qb =
+      static_cast<const __nv_bfloat16*>(a.q) + (long long)b * a.N * a.q_stride + h * HD;
+  const long long kvb = (long long)b * a.Nk * a.kv_stride + h * HD;
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + kvb;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + kvb;
   const int qa = blockIdx.x * kMQ + warp * 16 + g;  // this thread's two rows
-  const int qb = qa + 8;
+  const int qb_row = qa + 8;
 
   uint32_t qf[QK_STEPS][4];
 #pragma unroll
   for (int ks = 0; ks < QK_STEPS; ++ks) {
     const int c = ks * 16 + 2 * t;
-    const __nv_bfloat16* ra = base + (long long)qa * row + c;
-    const __nv_bfloat16* rb = base + (long long)qb * row + c;
-    qf[ks][0] = qa < N ? ld32(ra) : 0u;
-    qf[ks][1] = qb < N ? ld32(rb) : 0u;
-    qf[ks][2] = qa < N ? ld32(ra + 8) : 0u;
-    qf[ks][3] = qb < N ? ld32(rb + 8) : 0u;
+    const __nv_bfloat16* ra = qb + (long long)qa * a.q_stride + c;
+    const __nv_bfloat16* rb = qb + (long long)qb_row * a.q_stride + c;
+    qf[ks][0] = qa < a.N ? ld32(ra) : 0u;
+    qf[ks][1] = qb_row < a.N ? ld32(rb) : 0u;
+    qf[ks][2] = qa < a.N ? ld32(ra + 8) : 0u;
+    qf[ks][3] = qb_row < a.N ? ld32(rb + 8) : 0u;
   }
 
   float o[O_TILES][4];
 #pragma unroll
   for (int i = 0; i < O_TILES; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  const float scale_log2 = a.scale * kLog2e;
 
-  for (int k0 = 0; k0 < N; k0 += kMK) {
+  for (int k0 = 0; k0 < a.Nk; k0 += kMK) {
     __syncthreads();  // the previous tile is consumed
     for (int e = threadIdx.x; e < kMK * CHUNKS; e += 32 * kWarps) {
       const int r = e / CHUNKS, c8 = (e % CHUNKS) * 8;
       const int kr = k0 + r;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (kr < N) {
-        const __nv_bfloat16* src = base + (long long)kr * row + c8;
-        kv = *reinterpret_cast<const uint4*>(src + C);
-        vv = *reinterpret_cast<const uint4*>(src + 2 * C);
+      if (kr < a.Nk) {
+        const long long off = (long long)kr * a.kv_stride + c8;
+        kv = *reinterpret_cast<const uint4*>(kb + off);
+        vv = *reinterpret_cast<const uint4*>(vb + off);
       }
       *reinterpret_cast<uint4*>(&Ks[r][c8]) = kv;
       const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&vv);
@@ -210,8 +232,9 @@ attention_bf16_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
     if (threadIdx.x < kMK) {
       const int kr = k0 + threadIdx.x;
-      kbias[threadIdx.x] =
-          kr >= N ? -INFINITY : ((key_mask != nullptr && key_mask[kr] == 0) ? -1e30f : 0.f);
+      kbias[threadIdx.x] = kr >= a.Nk
+                               ? -INFINITY
+                               : ((a.key_mask != nullptr && a.key_mask[kr] == 0) ? -1e30f : 0.f);
     }
     __syncthreads();
 
@@ -274,14 +297,14 @@ attention_bf16_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     // fragment of the kk-th 16-key step
 #pragma unroll
     for (int kk = 0; kk < kMK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int i = 0; i < O_TILES; ++i) {
         const __nv_bfloat16* vp = &Vt[i * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(o[i], a, ld32(vp), ld32(vp + 8));
+        mma_bf16(o[i], pa, ld32(vp), ld32(vp + 8));
       }
     }
   }
@@ -292,48 +315,46 @@ attention_bf16_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
   }
   const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-  __nv_bfloat16* dst = out + (long long)b * N * C + h * HD + 2 * t;
+  __nv_bfloat16* dst =
+      static_cast<__nv_bfloat16*>(a.out) + (long long)b * a.N * a.o_stride + h * HD + 2 * t;
 #pragma unroll
   for (int i = 0; i < O_TILES; ++i) {
-    if (qa < N)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)qa * C + i * 8) =
+    if (qa < a.N)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)qa * a.o_stride + i * 8) =
           __floats2bfloat162_rn(o[i][0] * inv_a, o[i][1] * inv_a);
-    if (qb < N)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)qb * C + i * 8) =
+    if (qb_row < a.N)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)qb_row * a.o_stride + i * 8) =
           __floats2bfloat162_rn(o[i][2] * inv_b, o[i][3] * inv_b);
-  }
-}
-
-template <int HD>
-void launch_hd(const void* qkv, const uint8_t* mask, void* out, int B, int N, int C,
-               int heads, float scale, int is_bf16, cudaStream_t st) {
-  if (is_bf16) {
-    const dim3 grid((N + kMQ - 1) / kMQ, heads, B);
-    attention_bf16_mma_kernel<HD><<<grid, 32 * kWarps, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(qkv), mask, static_cast<__nv_bfloat16*>(out), N, C,
-        scale * kLog2e);
-  } else {
-    const dim3 grid((N + kBQ - 1) / kBQ, heads, B);
-    attention_f32_kernel<HD><<<grid, kBQ, 0, st>>>(static_cast<const float*>(qkv), mask,
-                                                   static_cast<float*>(out), N, C, scale);
   }
 }
 
 }  // namespace
 
-// qkv (B, N, 3C) contiguous and 16-byte aligned, float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1); key_mask: (N,) uint8 or null; out (B, N, C) of
-// the input type. Head dim C / heads must be 48, the tracker's (hidden 384
-// over 8 heads); other head dims are not instantiated. Returns
-// cudaGetLastError() after the launch.
-extern "C" int fused_qkv_attention(const void* qkv, const void* key_mask,
-                                   void* out, int B, int N, int C, int heads,
-                                   float scale, int is_bf16, void* stream) {
+// Softmax attention over `heads` heads of dim 48 for B batch rows.
+// q: (B, N) rows of stride q_stride; k and v: (B, Nk) rows of stride
+// kv_stride; out: (B, N) rows of stride o_stride. Head h reads lanes
+// h*48 .. h*48+47 of each row from the given base pointers and writes the
+// same lanes of out. key_mask: (Nk,) uint8 or null. float32 (is_bf16 = 0)
+// or bfloat16 (is_bf16 = 1) throughout; for bf16, k and v rows must be
+// 16-byte aligned (kv_stride a multiple of 8 and 16-byte aligned bases).
+// Returns cudaGetLastError() after the launch.
+extern "C" int attention_forward(const void* q, const void* k, const void* v,
+                                 const void* key_mask, void* out, int B, int N, int Nk,
+                                 int heads, int q_stride, int kv_stride, int o_stride,
+                                 float scale, int is_bf16, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  if (heads <= 0 || C % heads != 0) return (int)cudaErrorInvalidValue;
+  if (Nk <= 0 || heads <= 0 || heads * kHeadDim > q_stride || heads * kHeadDim > kv_stride ||
+      heads * kHeadDim > o_stride || (is_bf16 && kv_stride % 8 != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* km = static_cast<const uint8_t*>(key_mask);
-  if (C / heads != 48) return (int)cudaErrorInvalidValue;
-  launch_hd<48>(qkv, km, out, B, N, C, heads, scale, is_bf16, st);
+  const AttnArgs a{q, k, v, static_cast<const uint8_t*>(key_mask), out, N, Nk,
+                   q_stride, kv_stride, o_stride, scale};
+  if (is_bf16) {
+    const dim3 grid((N + kMQ - 1) / kMQ, heads, B);
+    attention_bf16_mma_kernel<kHeadDim><<<grid, 32 * kWarps, 0, st>>>(a);
+  } else {
+    const dim3 grid((N + kBQ - 1) / kBQ, heads, B);
+    attention_f32_kernel<kHeadDim><<<grid, kBQ, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,26 @@
-"""K2: packed-qkv multi-head attention (csrc/fused_qkv_attention.cu).
+"""K2, packed-qkv multi-head attention, and K3, single-head attention
+(csrc/fused_qkv_attention.cu, one kernel template for both).
 
-Replaces the TPU kernel
-batrack_tpu/ops/pallas_attention.py::_fused_qkv_kernel (entry point
-fused_qkv_attention). It reads q, k and v straight from the (B, N, 3C)
-output of the qkv projection and writes (B, N, C) with the heads merged, so
-neither the head split nor the merge is materialised. bf16 input runs on
-the tensor cores (mma.sync), float32 input on the float32 pipes. What bounds
-it on the H100 and how the kernel is laid out is in the source note of the
-.cu file.
+K2 replaces the TPU kernel batrack_tpu/ops/pallas_attention.py::
+_fused_qkv_kernel (entry point fused_qkv_attention). It reads q, k and v
+straight from the (B, N, 3C) output of the qkv projection and writes
+(B, N, C) with the heads merged, so neither the head split nor the merge is
+materialised. With `kv=` the keys and values come from a separate
+(B, Nk, 2C) slim or (B, Nk, 3C) packed source instead: the track-sharded
+space attention (parallel/shard_kernels.py) runs this rank's queries
+against the key/value lanes gathered from every rank.
 
-On a CUDA tensor `fused_qkv_attention` launches the kernel; on a CPU tensor
-it runs the plain version, `fused_qkv_attention_plain`, which the kernel is
-held against on the card. The `kv=` variant of the TPU kernel (separate
-key/value source, used only by the sharded path) is not ported yet.
+K3 replaces ::_attn_kernel (entry point vmem_attention): single-head
+softmax(q k^T * scale) v over (B, N, 48). The JAX package calls it nowhere;
+it is ported so that every Pallas kernel of the repository has a
+counterpart.
+
+bf16 input runs on the tensor cores (mma.sync), float32 input on the float32
+pipes. What bounds the kernels on the H100 and how they are laid out is in
+the source note of the .cu file. On a CUDA tensor each wrapper launches the
+kernel or raises; on a CPU tensor it runs the plain version
+(`fused_qkv_attention_plain`, `vmem_attention_plain`), which the kernel is
+held against on the card.
 """
 
 from __future__ import annotations
@@ -27,37 +35,89 @@ from batrack_tpu_torch.ops import cuda_build
 _KERNEL_HEAD_DIM = 48  # the tracker's: hidden 384 over 8 heads
 
 
+def _kv_source(qkv: torch.Tensor, kv: Optional[torch.Tensor]):
+    """(source, lane offset of K in it): the packed qkv itself, or a
+    separate slim (B, Nk, 2C) or packed (B, Nk, 3C) key/value array."""
+    B, _, C3 = qkv.shape
+    C = C3 // 3
+    if kv is None:
+        return qkv, C
+    if kv.ndim != 3 or kv.shape[0] != B or kv.shape[-1] not in (2 * C, 3 * C):
+        raise ValueError(f"kv {tuple(kv.shape)} must be (B, Nk, 2C) or (B, Nk, 3C) "
+                         f"for qkv {tuple(qkv.shape)}")
+    return kv, kv.shape[-1] - 2 * C
+
+
+def _softmax_pv(q, k, v, scale, key_mask):
+    """The TPU kernels' numerics for one head: float32 logits and softmax,
+    masked keys at -1e30, p cast to v's dtype for the PV product."""
+    logits = (q.float() @ k.float().transpose(1, 2)) * scale
+    if key_mask is not None:
+        logits = logits.masked_fill(~key_mask.bool()[None, None, :], -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    return p.to(v.dtype) @ v
+
+
 def fused_qkv_attention_plain(qkv: torch.Tensor, heads: int, scale: float,
-                              key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K2, one head at a time, the TPU kernel's numerics:
-    float32 logits and softmax, masked keys at -1e30, p/s cast to v's dtype
-    for the PV product."""
+                              key_mask: Optional[torch.Tensor] = None,
+                              kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K2, one head at a time."""
     B, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // heads
+    src, koff = _kv_source(qkv, kv)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     for h in range(heads):
         sl = slice(h * hd, (h + 1) * hd)
-        q = qkv[..., sl].float()
-        k = qkv[..., C:][..., sl].float()
-        v = qkv[..., 2 * C:][..., sl]
-        logits = (q @ k.transpose(1, 2)) * scale
-        if key_mask is not None:
-            logits = logits.masked_fill(~key_mask.bool()[None, None, :], -1e30)
-        p = torch.exp(logits - logits.amax(-1, keepdim=True))
-        p = p / p.sum(-1, keepdim=True)
-        out[..., sl] = (p.to(v.dtype) @ v).to(qkv.dtype)
+        k = src[..., koff + h * hd: koff + (h + 1) * hd]
+        v = src[..., koff + C + h * hd: koff + C + (h + 1) * hd]
+        out[..., sl] = _softmax_pv(qkv[..., sl], k, v, scale, key_mask).to(qkv.dtype)
     return out
 
 
+def _launch(q, k, v, key_mask, out, B, N, Nk, heads, q_stride, kv_stride, scale, what):
+    """One launch of the attention kernel on base pointers and row strides
+    (elements) over contiguous tensors."""
+    mask = None
+    if key_mask is not None:
+        if key_mask.shape != (Nk,) or key_mask.device != out.device:
+            raise ValueError(f"{what}: key_mask must be ({Nk},) on {out.device}")
+        mask = key_mask.to(torch.uint8).contiguous()
+    fn = cuda_build.load("fused_qkv_attention").attention_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(q, k, v, None if mask is None else mask.data_ptr(), out.data_ptr(),
+                    B, N, Nk, heads, q_stride, kv_stride, out.shape[-1], float(scale),
+                    int(out.dtype == torch.bfloat16), stream)
+    cuda_build.check(status, what)
+
+
+def _kernel_input(x: torch.Tensor, what: str) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (the bf16 kernel reads 16-byte rows of
+    K and V); float32 or bf16 only."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: dtype {x.dtype}")
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
-                        key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        key_mask: Optional[torch.Tensor] = None,
+                        kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head softmax attention on the packed (B, N, 3C) qkv -> (B, N, C).
 
-    key_mask: optional (N,) bool; False keys are excluded from every
-    query's softmax (logit -1e30)."""
+    kv: optional separate key/value source, (B, Nk, 2C) slim or (B, Nk, 3C)
+    packed (its q third is ignored); queries still come from qkv.
+    key_mask: optional (Nk,) bool (Nk = N without kv); False keys are
+    excluded from every query's softmax (logit -1e30)."""
     if qkv.device.type == "cpu":
-        return fused_qkv_attention_plain(qkv, heads, scale, key_mask)
+        return fused_qkv_attention_plain(qkv, heads, scale, key_mask, kv)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention: unsupported device {qkv.device}")
     B, N, C3 = qkv.shape
@@ -65,29 +125,57 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
     if C3 % 3 or C % heads or C // heads != _KERNEL_HEAD_DIM:
         raise ValueError(f"fused_qkv_attention: qkv {tuple(qkv.shape)} with "
                          f"{heads} heads (the kernel's head dim is {_KERNEL_HEAD_DIM})")
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_qkv_attention: dtype {qkv.dtype}")
-    qkv = qkv.contiguous()
-    if qkv.data_ptr() % 16:  # the kernel reads 16-byte rows of K and V
-        qkv = qkv.clone()
-    mask = None
-    if key_mask is not None:
-        if key_mask.shape != (N,) or key_mask.device != qkv.device:
-            raise ValueError("fused_qkv_attention: key_mask must be (N,) on the qkv device")
-        mask = key_mask.to(torch.uint8).contiguous()
+    qkv = _kernel_input(qkv, "fused_qkv_attention")
+    src, koff = _kv_source(qkv, kv)
+    if kv is not None:
+        src = _kernel_input(src, "fused_qkv_attention")
+        if src.dtype != qkv.dtype or src.device != qkv.device:
+            raise TypeError("fused_qkv_attention: kv must match qkv's dtype and device")
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-    fn = cuda_build.load("fused_qkv_attention").fused_qkv_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(qkv.data_ptr(), None if mask is None else mask.data_ptr(),
-                    out.data_ptr(), B, N, C, heads, float(scale),
-                    int(qkv.dtype == torch.bfloat16), stream)
-    cuda_build.check(status, "fused_qkv_attention")
+    row = src.shape[-1]
+    base, esize = src.data_ptr(), src.element_size()
+    _launch(qkv.data_ptr(), base + koff * esize, base + (koff + C) * esize, key_mask, out,
+            B, N, src.shape[1], heads, 3 * C, row, scale, "fused_qkv_attention")
     fused_qkv_attention.launches += 1
+    if kv is not None:
+        fused_qkv_attention.kv_launches += 1
     return out
 
 
-fused_qkv_attention.launches = 0
+fused_qkv_attention.launches = 0     # every launch, packed or kv=
+fused_qkv_attention.kv_launches = 0  # launches with a kv= source
+
+
+def vmem_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Plain version of K3: float32 logits and softmax, p cast to v's dtype
+    for the PV product, output in q's dtype."""
+    return _softmax_pv(q, k, v, scale, None).to(q.dtype)
+
+
+def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                   block_q: int = 512) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (B, N, D) with D = 48 -> (B, N, D).
+
+    block_q is the TPU kernel's query tiling; it is accepted and ignored
+    (the CUDA kernel tiles queries by 64)."""
+    del block_q
+    if q.device.type == "cpu":
+        return vmem_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"vmem_attention: unsupported device {q.device}")
+    if not (q.shape == k.shape == v.shape) or q.ndim != 3 or q.shape[-1] != _KERNEL_HEAD_DIM:
+        raise ValueError(f"vmem_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} (the kernel takes (B, N, {_KERNEL_HEAD_DIM}))")
+    if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
+        raise TypeError("vmem_attention: q, k and v must share dtype and device")
+    q, k, v = (_kernel_input(x, "vmem_attention") for x in (q, k, v))
+    B, N, D = q.shape
+    out = torch.empty_like(q)
+    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out, B, N, N, 1, D, D, scale,
+            "vmem_attention")
+    vmem_attention.launches += 1
+    return out
+
+
+vmem_attention.launches = 0

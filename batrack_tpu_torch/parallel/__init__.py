@@ -1,0 +1,61 @@
+"""The multi-device path over torch.distributed (counterpart of
+batrack_tpu/parallel/).
+
+One process per GPU, each holding one rank of a process group (torchrun;
+`init_distributed`, `get_mesh`). `BATrack(mesh=...)` and
+`MDTrackerAdapter(mesh=...)` enter the path. Every rank holds the full,
+replicated SLAM state and takes identical frames and random draws; only two
+axes are sharded:
+
+* the tracker's tracks (queries): correlation (K1 on the rank's tracks,
+  `corr_sample_pyramid_sharded`), the flow embedding, the transformer's time
+  blocks and MLPs, and the space-attention queries run on this rank's
+  tracks; space attention gathers every rank's key/value lanes and runs K2
+  with a `kv=` source (`fused_qkv_attention_sharded`). After each
+  refinement step one all-gather of the transformer's output restores the
+  full per-track state, so everything that reduces over the track axis runs
+  on the full, replicated track set: the sort by first frame, the scrambled
+  track-mask/visibility concat and its active count, the space-attention
+  key mask, the window hand-off, and downstream the static-score quantile
+  of the frontend gate. The light per-track heads after each step (feature
+  update, visibility and motion heads) run replicated;
+* the slot BA's patches (`sharded_slot_slam_update`): one all_reduce of the
+  pose blocks per Gauss-Newton pose step, one all-gather of the patches and
+  one of the map filter's keep mask per backend update.
+
+Only rank 0 writes artifacts (`BATrack.get_results(save_path=...)`; the
+CLI, which writes the rest, is not ported yet).
+
+Deviations from the JAX package: batrack_tpu/parallel/sharded_tracker.py
+has no module here, since MDTracker(mesh=) itself shards each refinement
+step; `get_host_chip_mesh` is a flat group (parallel/mesh.py); the
+edge-sharded flat BA (parallel/sharded_ba.py) waits for the flat solver;
+the slot BA's shard_mode="slots" has no caller and is not ported (a mesh
+always means patch sharding).
+"""
+
+from batrack_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_rows,
+    get_host_chip_mesh,
+    get_mesh,
+    init_distributed,
+    shard_rows,
+)
+from batrack_tpu_torch.parallel.shard_kernels import (
+    corr_sample_pyramid_sharded,
+    fused_qkv_attention_sharded,
+)
+from batrack_tpu_torch.parallel.sharded_slot_ba import sharded_slot_slam_update
+
+__all__ = [
+    "Mesh",
+    "corr_sample_pyramid_sharded",
+    "fused_qkv_attention_sharded",
+    "gather_rows",
+    "get_host_chip_mesh",
+    "get_mesh",
+    "init_distributed",
+    "shard_rows",
+    "sharded_slot_slam_update",
+]

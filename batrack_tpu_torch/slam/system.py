@@ -7,12 +7,17 @@ ring write); once initialised, every frame runs the dual-BA backend update.
 The stages run eagerly on `device` and update one mutable SLAMState in
 place.
 
-Options outside this slice (use_keyframe, the flat BA backend, sift
-patches, multi-device execution) raise NotImplementedError.
+With `mesh` (parallel/mesh.py::get_mesh) the loop runs on every rank of a
+process group, each with the full state; the backend update runs
+patch-sharded (parallel/sharded_slot_ba.py) and a tracker adapter built
+with the same mesh shards the tracks. Options outside the ported slices
+(use_keyframe, the flat BA backend, sift patches) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import pickle
 from typing import Callable, Dict, List, Optional, Tuple
@@ -46,8 +51,6 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(f"slam.BA_BACKEND={s.BA_BACKEND!r} is not ported yet")
     if s.PATCH_GEN == "sift":
         raise NotImplementedError("slam.PATCH_GEN='sift' is not ported yet")
-    if s.mesh_devices or s.distributed:
-        raise NotImplementedError("multi-device execution is not ported yet")
     if s.MOTION_MODEL != "DAMPED_LINEAR":
         raise NotImplementedError(f"slam.MOTION_MODEL={s.MOTION_MODEL!r}")
 
@@ -57,13 +60,30 @@ class BATrack:
 
     def __init__(self, cfg: Config, ht: int, wd: int,
                  tracker: Optional[TrackerFn] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """device: where the state lives and every stage runs (default
         CUDA; raises when CUDA is asked for and absent). seed: the
         torch.Generator behind the patch generator's random draws, unless
-        `draw_hook` is set (tests set it to inject JAX's draws)."""
+        `draw_hook` is set (tests set it to inject JAX's draws); every rank
+        of a mesh must use the same. mesh: a parallel.mesh.Mesh on `device`
+        (slam.mesh_devices, when set, must equal its size); None runs on
+        one device."""
         _check_supported(cfg)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._update_fn = slam_update
+        if mesh is not None:
+            # imported here: parallel/ imports the slam modules
+            from batrack_tpu_torch.parallel.mesh import mesh_device
+            from batrack_tpu_torch.parallel.sharded_slot_ba import sharded_slot_slam_update
+
+            self.device = mesh_device(mesh, self.device)
+            if cfg.slam.mesh_devices not in (0, mesh.size):
+                raise ValueError(f"slam.mesh_devices={cfg.slam.mesh_devices} but the mesh "
+                                 f"has {mesh.size} ranks")
+            self._update_fn = functools.partial(sharded_slot_slam_update, mesh=mesh)
+        elif cfg.slam.mesh_devices or cfg.slam.distributed:
+            raise ValueError("slam.mesh_devices / slam.distributed need mesh=get_mesh(...)")
         self.cfg = cfg
         self.dims = StaticDims.from_config(cfg, ht, wd)
         self.state = init_state(cfg, ht, wd, self.device)
@@ -197,7 +217,7 @@ class BATrack:
 
     def update(self) -> None:
         with full_fp32(), self.timer.timed("ba_update"):
-            slam_update(self.state, self.n, self.is_initialized, self.dims, self.cfg.slam)
+            self._update_fn(self.state, self.n, self.is_initialized, self.dims, self.cfg.slam)
 
     # ------------------------------------------------------------------
     def world_trajectories(self) -> torch.Tensor:
@@ -253,7 +273,7 @@ class BATrack:
         }
         if self.ring_overflow_count:
             results["ring_overflow_count"] = int(self.ring_overflow_count)
-        if save_path is not None:
+        if save_path is not None and (self.mesh is None or self.mesh.rank == 0):
             with open(save_path, "wb") as f:
                 pickle.dump(results, f)
         return results

@@ -1,6 +1,8 @@
 """SLAM backend update: dual BA on the slot solver, map-point culling and
 the windowed point-cloud refresh (counterpart of batrack_tpu/slam/update.py,
-slot backend only; the flat backend is still to port).
+slot backend only; the flat backend is still to port). The patch-sharded
+update of the multi-device path shares `dual_ba` and the point-cloud
+refresh (parallel/sharded_slot_ba.py).
 
 The JAX package fuses this into one jitted program; here it runs eagerly,
 as a Python loop over the ITER dual-BA passes, updating the state in place.
@@ -12,10 +14,34 @@ from typing import Optional
 
 import torch
 
-from batrack_tpu_torch.ba.slot_solver import SlotGraph, slot_ba_iteration
+from batrack_tpu_torch.ba.slot_solver import SlotGraph, slot_ba_iteration_fm
 from batrack_tpu_torch.geometry import projective, se3
 from batrack_tpu_torch.slam.state import SLAMState, StaticDims
 from batrack_tpu_torch.utils.config import SlamConfig
+
+
+def dual_ba(poses: torch.Tensor, patches_fm: torch.Tensor, monodisp_fm: torch.Tensor,
+            intrinsics: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
+            weights_pose: torch.Tensor, weights: torch.Tensor, slot_start: torch.Tensor,
+            n: int, initialized: bool, dims: StaticDims, cfg: SlamConfig, mesh=None):
+    """ITER x dual BA over the slot graph: a pose pass with static-only
+    weights, then a structure-only pass with all weights (batrack.py:869-875).
+
+    patches_fm (N, M', 3), monodisp_fm (N, M') and the edge arrays
+    (R, NS, M', S, ...) hold M' patches of every frame: all of them, or this
+    rank's shard when `mesh` is set (parallel/sharded_slot_ba.py)."""
+    t0 = max(n - cfg.OPTIMIZATION_WINDOW, 1) if initialized else 1
+    base_f = max(n - dims.patch_window, 0)
+    kw = dict(window=dims.window, patch_window=dims.patch_window, patches_per_frame=dims.M,
+              kf_stride=dims.kf_stride, bounds=(0.0, 0.0, float(dims.wd), float(dims.ht)),
+              ep=cfg.BA_EP, lmbda=cfg.BA_LMBDA, alpha=cfg.BA_ALPHA, loss=cfg.LOSS, mesh=mesh)
+    for _ in range(cfg.ITER):
+        for w, structure_only in ((weights_pose, False), (weights, True)):
+            graph = SlotGraph(targets=targets, weights=w, valid=valid, slot_start=slot_start)
+            poses, patches_fm = slot_ba_iteration_fm(
+                poses, patches_fm, monodisp_fm, intrinsics, graph, t0, n, base_f,
+                structure_only=structure_only, **kw)
+    return poses, patches_fm
 
 
 def slam_update(state: SLAMState, n: int, initialized: bool, dims: StaticDims,
@@ -23,46 +49,27 @@ def slam_update(state: SLAMState, n: int, initialized: bool, dims: StaticDims,
     """One full backend update (ITER x dual BA + culling + point cloud)."""
     if cfg.BA_BACKEND != "slot":
         raise NotImplementedError(f"BA_BACKEND={cfg.BA_BACKEND!r} is not ported")
-    M = dims.M
+    M, Nf = dims.M, dims.N
     mid = (dims.S_local + 1) // 2 - 1
-    t0 = max(n - cfg.OPTIMIZATION_WINDOW, 1) if initialized else 1
-    base_k = max(n - dims.patch_window, 0) * M
-    bounds = (0.0, 0.0, float(dims.wd), float(dims.ht))
     R, NS, S = dims.ring_slots, dims.n_src, dims.S_slam
 
-    def reshape_edges(x):
+    def edges(x):
         return x.reshape((R, NS, M, S) + x.shape[1:])
 
     # the mono prior reads the local-trajectory mid slot, as the reference
     # does (batrack.py:866); after the first update it holds the BA's own
     # reprojected disparity for weighted tracks
-    monodisp = state.local_targets[:, mid, 2]
-    targets = reshape_edges(state.e_target)[..., :2]
-    valid = reshape_edges(state.e_valid)
-
-    def ba_pass(poses, patches, weights, structure_only):
-        graph = SlotGraph(targets=targets, weights=reshape_edges(weights),
-                          valid=valid, slot_start=state.slot_start)
-        return slot_ba_iteration(
-            poses, patches, monodisp, state.intrinsics, graph, t0, n, base_k,
-            window=dims.window, patch_window=dims.patch_window,
-            patches_per_frame=M, kf_stride=dims.kf_stride, bounds=bounds,
-            ep=cfg.BA_EP, lmbda=cfg.BA_LMBDA, alpha=cfg.BA_ALPHA,
-            loss=cfg.LOSS, structure_only=structure_only,
-        )
-
-    poses, patches = state.poses, state.patches
-    for _ in range(cfg.ITER):
-        # pose pass with static-only weights, then a structure-only pass
-        # with all weights (batrack.py:869-875)
-        poses, patches = ba_pass(poses, patches, state.e_weight_pose, False)
-        poses, patches = ba_pass(poses, patches, state.e_weight, True)
-    state.poses, state.patches = poses, patches
+    monodisp = state.local_targets[:, mid, 2].reshape(Nf, M)
+    poses, patches_fm = dual_ba(
+        state.poses, state.patches.reshape(Nf, M, 3), monodisp, state.intrinsics,
+        edges(state.e_target)[..., :2], edges(state.e_valid), edges(state.e_weight_pose),
+        edges(state.e_weight), state.slot_start, n, initialized, dims, cfg)
+    state.poses, state.patches = poses, patches_fm.reshape(Nf * M, 3)
 
     if cfg.USE_MAP_FILTERING:
         ii = (state.e_kk // M).long()
         coords, _, _ = projective.transform(
-            poses, patches, state.intrinsics, ii, state.e_jj.long(), state.e_kk.long())
+            poses, state.patches, state.intrinsics, ii, state.e_jj.long(), state.e_kk.long())
         ate = torch.linalg.vector_norm(coords - state.e_target[:, :2], dim=-1)
         keep = (ate < cfg.MAP_FILTERING_TH)[:, None].to(torch.float32)
         state.e_weight = state.e_weight * keep

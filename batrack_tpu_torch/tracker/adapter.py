@@ -4,7 +4,9 @@
 Around the network it does what the reference _compute_sparse_tracks does
 (batrack.py:529-587): resize the RGB-D window to the model resolution,
 scale query coordinates in and track outputs back out, and merge the static
-branch when configured.
+branch when configured. With a mesh, every rank passes all queries in and
+gets all tracks back: the network shards its refinement steps over the
+tracks itself (tracker/mdtracker.py).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 import torch
 
 from batrack_tpu_torch.ops.sampling import interpolate_bilinear
+from batrack_tpu_torch.parallel.mesh import mesh_device
 from batrack_tpu_torch.slam.frontend import TrackerInput, TrackerOutput
 from batrack_tpu_torch.tracker.mdtracker import MDTracker, TrackerParams
 from batrack_tpu_torch.utils.config import ModelConfig, resolve_device
@@ -30,18 +33,23 @@ class MDTrackerAdapter:
         backward_tracking: bool = False,
         static_threshold: float = 0.1,
         device="cuda",
+        mesh=None,
     ):
         """state_dict: weights by reference name (md_tracker.pth, or
-        tracker.convert.state_dict_from_flax); random from `seed` when None.
-        Activations run in model_cfg.compute_dtype. device: default CUDA;
-        raises when CUDA is asked for and absent."""
+        tracker.convert.state_dict_from_flax); random from `seed` when None,
+        so every rank of a mesh builds the same weights. Activations run in
+        model_cfg.compute_dtype. device: default CUDA; raises when CUDA is
+        asked for and absent. mesh: a parallel.mesh.Mesh on `device`; the
+        tracks are sharded over it. None runs on one device."""
         if backward_tracking:
             raise NotImplementedError("backward tracking is not ported yet")
         self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = mesh_device(mesh, self.device)
         self.p = TrackerParams.from_config(model_cfg)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = MDTracker(self.p)
+            model = MDTracker(self.p, mesh=mesh)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(device=self.device,

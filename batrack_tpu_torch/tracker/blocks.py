@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
 from batrack_tpu_torch.ops.sampling import interpolate_bilinear
+from batrack_tpu_torch.parallel.shard_kernels import fused_qkv_attention_sharded
 
 
 class Linear(nn.Linear):
@@ -111,27 +112,38 @@ class Attention(nn.Module):
 
     Sequences of at least `kernel_threshold` tokens go through the
     packed-qkv attention kernel K2 when `use_kernel` is set; shorter ones
-    (the time blocks) through its plain version, the same function."""
+    (the time blocks) through its plain version, the same function. With a
+    `mesh` the sequence axis is sharded over the ranks (the space blocks of
+    the multi-device path): x holds this rank's tokens and the keys and
+    values of all ranks are gathered (fused_qkv_attention_sharded)."""
 
     def __init__(self, dim: int, num_heads: int, use_kernel: bool = False,
-                 kernel_threshold: int = 1024):
+                 kernel_threshold: int = 1024, mesh=None):
         super().__init__()
         self.num_heads = num_heads
         self.use_kernel = use_kernel
         self.kernel_threshold = kernel_threshold
+        self.mesh = mesh
         self.qkv = Linear(dim, dim * 3)
         self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, key_mask=None) -> torch.Tensor:
-        """key_mask: optional (N,) bool; False keys are excluded from the
-        softmax (the reference slices inactive tracks out instead)."""
+        """key_mask: optional (N,) bool, of this rank's tokens under a mesh;
+        False keys are excluded from the softmax (the reference slices
+        inactive tracks out instead)."""
         N, C = x.shape[1], x.shape[2]
         qkv = self.qkv(x)
         scale = (C // self.num_heads) ** -0.5
-        if self.use_kernel and N >= self.kernel_threshold:
-            out = fused_qkv_attention(qkv, self.num_heads, scale, key_mask)
+        n_all = N if self.mesh is None else N * self.mesh.size
+        if self.use_kernel and n_all >= self.kernel_threshold:
+            attend = fused_qkv_attention
         else:
-            out = fused_qkv_attention_plain(qkv, self.num_heads, scale, key_mask)
+            attend = fused_qkv_attention_plain
+        if self.mesh is not None:
+            out = fused_qkv_attention_sharded(qkv, self.num_heads, scale, self.mesh, key_mask,
+                                              attend=attend)
+        else:
+            out = attend(qkv, self.num_heads, scale, key_mask)
         return self.proj(out)
 
 
@@ -151,9 +163,9 @@ class AttnBlock(nn.Module):
     """Pre-norm transformer block (reference AttnBlock)."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
-                 use_kernel: bool = False, kernel_threshold: int = 1024):
+                 use_kernel: bool = False, kernel_threshold: int = 1024, mesh=None):
         super().__init__()
-        self.attn = Attention(hidden_size, num_heads, use_kernel, kernel_threshold)
+        self.attn = Attention(hidden_size, num_heads, use_kernel, kernel_threshold, mesh)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size)
 
     def forward(self, x: torch.Tensor, key_mask=None) -> torch.Tensor:
@@ -168,7 +180,7 @@ class UpdateFormer(nn.Module):
                  input_dim: int = 456, hidden_size: int = 384, num_heads: int = 8,
                  output_dim: int = 131, mlp_ratio: float = 4.0,
                  add_space_attn: bool = True, use_kernel: bool = False,
-                 kernel_threshold: int = 1024):
+                 kernel_threshold: int = 1024, mesh=None):
         super().__init__()
         if add_space_attn and (space_depth > time_depth or time_depth % space_depth):
             raise ValueError(f"space_depth ({space_depth}) must divide time_depth "
@@ -180,14 +192,15 @@ class UpdateFormer(nn.Module):
         self.time_blocks = nn.ModuleList(
             AttnBlock(hidden_size, num_heads, mlp_ratio) for _ in range(time_depth))
         self.space_blocks = nn.ModuleList(
-            AttnBlock(hidden_size, num_heads, mlp_ratio, use_kernel, kernel_threshold)
+            AttnBlock(hidden_size, num_heads, mlp_ratio, use_kernel, kernel_threshold, mesh)
             for _ in range(space_depth if add_space_attn else 0))
         self.flow_head = Linear(hidden_size, output_dim)
 
     def forward(self, x: torch.Tensor, key_mask=None) -> torch.Tensor:
         # x: (B, N, T, input_dim); key_mask: optional (N,) active-track mask
         # for the space attention (time attention, MLPs and norms are
-        # per-track, so absent tracks cannot leak through them)
+        # per-track, so absent tracks cannot leak through them). Under a
+        # mesh N is this rank's tracks and only the space blocks communicate
         B, N, T, _ = x.shape
         Hd = self.hidden_size
         x = self.input_transform(x)

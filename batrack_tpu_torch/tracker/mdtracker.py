@@ -7,6 +7,12 @@ correlation windows come from the fused gather-contract of K1
 (ops/corr_kernel.py) or its plain S-major version (ops/corr.py); the space
 attention goes through K2 (ops/attention.py). Parameter names follow the
 reference checkpoint, including its scrambled track_mask/vis concat.
+
+With a `mesh` (the multi-device path, parallel/) the per-track state stays
+full and replicated on every rank; each refinement step runs the
+correlation, the flow embedding and the transformer on this rank's tracks
+only (parallel/mesh.py::shard_rows, padded to a multiple of the world
+size) and all-gathers the transformer's output.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from batrack_tpu_torch.ops.embeddings import (
     get_3d_embedding,
 )
 from batrack_tpu_torch.ops.sampling import bilinear_sample2d, bilinear_sample_per_frame
+from batrack_tpu_torch.parallel.mesh import gather_rows, shard_rows
+from batrack_tpu_torch.parallel.shard_kernels import corr_sample_pyramid_sharded
 from batrack_tpu_torch.tracker.blocks import (
     BasicEncoder,
     Conv2d,
@@ -104,11 +112,15 @@ def _scrambled_concat(track_mask: torch.Tensor, vis: torch.Tensor, cnt=None) -> 
 
 
 class MDTracker(nn.Module):
-    """The tracker network (submodule names mirror the torch checkpoint)."""
+    """The tracker network (submodule names mirror the torch checkpoint).
 
-    def __init__(self, p: TrackerParams):
+    mesh: optional parallel.mesh.Mesh; the track axis is sharded over it
+    (module note)."""
+
+    def __init__(self, p: TrackerParams, mesh=None):
         super().__init__()
         self.p = p
+        self.mesh = mesh
         out_dim = p.latent_dim + 3
 
         def former(space, time):
@@ -117,7 +129,7 @@ class MDTracker(nn.Module):
                 hidden_size=p.hidden_size, num_heads=p.num_heads,
                 output_dim=out_dim, add_space_attn=p.add_space_attn,
                 use_kernel=p.use_attention_kernel,
-                kernel_threshold=p.kernel_threshold)
+                kernel_threshold=p.kernel_threshold, mesh=mesh)
 
         self.fnet = BasicEncoder(output_dim=p.latent_dim, stride=p.stride)
         self.updateformer = former(p.space_depth, p.time_depth)
@@ -171,22 +183,35 @@ class MDTracker(nn.Module):
         (S, N, C); concat (N, S, 2) pre-scrambled mask/vis channels.
         Returns (coord_pred, depth_pred, static_out, vis_logits, dyn_logit).
         """
-        p = self.p
+        p, mesh = self.p, self.mesh
         S, C, h4, w4 = fmaps.shape
+        N = coords_init.shape[1]
         dev = fmaps.device
         pyramid = build_pyramid(fmaps, p.corr_levels)
+        # corr_nsc(ffeats (N, S, C), coords (S, N, 2)) -> (N', S, LRR) for
+        # the N' tracks this rank works on: all of them, or its shard
         if p.use_corr_kernel:
             pyr = pack_pyramid(pyramid)  # bf16, packed once for all iterations
 
             def corr_nsc(ffeats_ns, cxy):
+                if mesh is not None:
+                    return corr_sample_pyramid_sharded(pyr, ffeats_ns.float(), cxy.float(),
+                                                       p.corr_radius, mesh)
                 return corr_sample(pyr, ffeats_ns.float(), cxy.float(), p.corr_radius)
         else:
             pyr32 = [fm.float() for fm in pyramid]
 
             def corr_nsc(ffeats_ns, cxy):
+                if mesh is not None:
+                    ffeats_ns, cxy = shard_rows(ffeats_ns, mesh), shard_rows(cxy, mesh, 1)
                 fc = corr_sample_pyramid(pyr32, ffeats_ns.float().transpose(0, 1),
                                          cxy, p.corr_radius)
                 return fc.transpose(0, 1)
+
+        if mesh is not None and (key_mask is not None or N % mesh.size):
+            # this rank's keys; padded tracks are masked out of every softmax
+            full = torch.ones(N, dtype=torch.bool, device=dev) if key_mask is None else key_mask
+            key_mask = shard_rows(full, mesh)
 
         # track features stay track-major (N, S, C), the transformer layout
         ffeats = feat_init.transpose(0, 1)
@@ -211,12 +236,18 @@ class MDTracker(nn.Module):
             return out_xy, out_d
 
         def one_iter(coords, ffeats_ns, pe, transformer):
-            fcorrs = corr_nsc(ffeats_ns, coords[..., :2])            # (N, S, LRR)
+            fcorrs = corr_nsc(ffeats_ns, coords[..., :2])            # (N', S, LRR)
             flows = (coords - coords[0:1]).transpose(0, 1)            # (N, S, 3)
+            cc = concat
+            if mesh is not None:
+                flows, ffeats_ns, cc, pe = (shard_rows(a, mesh)
+                                            for a in (flows, ffeats_ns, cc, pe))
             flows_cat = self.zeroMLPflow(get_3d_embedding(flows, 64, cat_coords=True))
-            x = torch.cat([flows_cat.float(), fcorrs, ffeats_ns.float(), concat], dim=-1)
+            x = torch.cat([flows_cat.float(), fcorrs, ffeats_ns.float(), cc], dim=-1)
             x = x + pe[:, None, :] + times_embed[None, :, :]
-            delta = transformer(x[None], key_mask)[0]                 # (N, S, C+3)
+            delta = transformer(x[None], key_mask)[0]                 # (N', S, C+3)
+            if mesh is not None:
+                delta = gather_rows(delta, mesh, N)
             return delta[..., :3].transpose(0, 1), delta[..., 3:]
 
         # GroupNorm(1, C) runs on flattened (N*S, C) rows, as in the

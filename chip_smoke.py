@@ -26,7 +26,30 @@ Phases, each of which fails the run when it fails:
    0 (random weights put no track over 0.9), so the slot BA, the map filter
    and the ring run on weighted edges; then one backend update on the card
    against the same update on the CPU, beside the CPU update of a jittered
-   copy as a witness of the system's conditioning.
+   copy as a witness of the system's conditioning;
+6. the multi-device path on one card: a one-rank NCCL group made in this
+   process (parallel.get_mesh(1)), BATrack and MDTrackerAdapter with
+   mesh= over phase 4's frames (counters set to 0 just before, read just
+   after: space attention must take K2's kv= route on every append),
+   frames/s and stage ms beside phase 4's, the trajectory of the first 32
+   frames held against phase 4's (zero edge weights in both, so this
+   holds the ring and BA plumbing, not the tracker); then one tracker
+   forward of phase 3's input under the mesh against the single-device
+   forward at phase 3's bf16 limits, and the patch-sharded backend update
+   on phase 5's live-edge state against phase 5's CPU update within 10x
+   phase 5's witness.
+
+With --ranks, under torchrun (one process per GPU), it runs only the
+multi-device path at the group's world size: a tracker forward held
+against the single-device one, the SLAM loop with live edges, timed, and
+one patch-sharded backend update of its final state against the CPU
+update (README).
+
+Phase 2 also holds K2 with a kv= source (queries of all 2400 tracks, the
+shape phase 6 gives it at one rank, and of a quarter of them, one rank of
+a 4-way track shard) and K3 (vmem_attention, on no path of the JAX
+package) against their plain versions, and times them. K3's launch
+counter is read around phases 4 and 6 and must stay 0.
 
 It then prints one {"kernels": [...]} line, the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
@@ -64,6 +87,8 @@ SFU_OPS_S = 132 * 16 * 1.83e9
 S, C, H4, W4, LEVELS, RADIUS = 12, 128, 96, 128, 4, 3
 NQ = 6 * 400                      # n_src source frames x PATCHES_PER_FRAME
 HIDDEN, HEADS = 384, 8
+SHARDS = 4                        # K2 kv=: one rank's queries of a 4-way track shard
+K3_B = S * HEADS                  # K3: (batch x heads, tracks, head dim) of space attention
 FRAMES, STEADY_FROM, STAGE_FROM = 40, 16, 32
 HT, WD = 480, 640
 INTR = np.array([500.0, 500.0, WD / 2, HT / 2], np.float32)
@@ -151,8 +176,8 @@ def plain_kernels(jitter_gen=None):
         if jitter_gen is None:
             return fn
 
-        def run(*args):
-            x = fn(*args)
+        def run(*args, **kw):
+            x = fn(*args, **kw)
             u = torch.rand(x.shape, generator=jitter_gen, device=x.device) * 2 - 1
             return (x.float() * (1 + torch.finfo(x.dtype).eps * u)).to(x.dtype)
         return run
@@ -266,6 +291,117 @@ def phase_k2(dev, gen):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def attention_bound(n_logits, d, nbytes):
+    """bound() of softmax attention: QK^T and PV on the bf16 tensor cores
+    and one exponential per logit, against `nbytes` moved. Also returns a
+    description of the work."""
+    flops = 4 * n_logits * d
+    what = f"{flops / 1e9:.1f} GFLOP bf16, {n_logits / 1e6:.0f} M exp, {nbytes / 1e6:.1f} MB"
+    return bound(nbytes, [flops / BF16_FLOPS, n_logits / SFU_OPS_S]) + (what,)
+
+
+# ---------------------------------------------------------------- K2 kv=
+def phase_k2_kv(dev, gen):
+    import torch.nn.functional as F
+
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    d = HIDDEN // HEADS
+    scale = d ** -0.5
+    kv32 = torch.randn((S, NQ, 3 * HIDDEN), generator=gen, device=dev)
+    mask = torch.rand((NQ,), generator=gen, device=dev) > 0.2
+    readings = {}
+    # one rank's queries: all NQ tracks at one rank (phase 6's shape), then
+    # a quarter of them (one rank of a 4-way track shard)
+    for nq in (NQ, NQ // SHARDS):
+        log(f"[K2 kv=] fused_qkv_attention(kv=): queries ({S}, {nq}, {3 * HIDDEN}), keys "
+            f"and values of all {NQ} tracks, slim ({S}, {NQ}, {2 * HIDDEN}) or packed "
+            f"({S}, {NQ}, {3 * HIDDEN})")
+        qkv32 = torch.randn((S, nq, 3 * HIDDEN), generator=gen, device=dev)
+        errs = {}
+        with full_fp32():
+            for dt in (torch.bfloat16, torch.float32):
+                for source in ("slim", "packed"):
+                    qkv = qkv32.to(dt)
+                    kv = kv32[..., HIDDEN:].contiguous() if source == "slim" else kv32
+                    kv = kv.to(dt)
+                    for m in (None, mask):
+                        out = fused_qkv_attention(qkv, HEADS, scale, m, kv=kv)
+                        torch.cuda.synchronize()
+                        assert out.shape == (S, nq, HIDDEN) and out.dtype == dt
+                        ref = fused_qkv_attention_plain(qkv, HEADS, scale, m, kv=kv)
+                        err = max_err(out, ref)
+                        errs[(dt, source, m is None)] = err
+                        tol = bf16_tol(ref) if dt == torch.bfloat16 else TOL["k2_f32"]
+                        check(f"K2 kv= vs plain, {str(dt)[6:]}, {source} source, key mask "
+                              f"{'no' if m is None else 'yes'}", err, tol)
+        # the multi-device path's call: bf16, slim gathered source, no key
+        # mask (one window, 2400 tracks divide over the ranks)
+        qkv = qkv32.to(torch.bfloat16)
+        kv = kv32[..., HIDDEN:].to(torch.bfloat16).contiguous()
+        ms = cuda_ms(lambda: fused_qkv_attention(qkv, HEADS, scale, kv=kv), reps=10)
+        plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(qkv, HEADS, scale, kv=kv), reps=3)
+        q = qkv[..., :HIDDEN].reshape(S, nq, HEADS, d).transpose(1, 2).contiguous()
+        k, v = (x.contiguous() for x in kv.view(S, NQ, 2, HEADS, d).permute(2, 0, 3, 1, 4))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                             reps=10)
+
+        # bound: the q lanes and the slim source read once, the output
+        # written once (the kernel never needs the k/v lanes of qkv)
+        nbytes = (S * nq * HIDDEN + kv.numel() + S * nq * HIDDEN) * 2
+        bound_ms, bound_by, what = attention_bound(S * HEADS * nq * NQ, d, nbytes)
+        log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  "
+            f"bound_ms {bound_ms:.4f} ({bound_by}: {what})")
+        readings[nq] = {"max_abs_err": errs[(torch.bfloat16, "slim", True)], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms}
+    # the kernels line reports the shape whose launches it counts (phase 6)
+    return {"name": "fused_qkv_attention_kv", "route": "cuda",
+            "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu",
+            "replaces": "batrack_tpu/ops/pallas_attention.py:22", **readings[NQ]}
+
+
+# ---------------------------------------------------------------- K3
+def phase_k3(dev, gen):
+    import torch.nn.functional as F
+
+    from batrack_tpu_torch.ops.attention import vmem_attention, vmem_attention_plain
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    d = HIDDEN // HEADS
+    scale = d ** -0.5
+    log(f"[K3] vmem_attention: q, k, v ({K3_B}, {NQ}, {d})")
+    q32, k32, v32 = (torch.randn((K3_B, NQ, d), generator=gen, device=dev) for _ in range(3))
+    errs = {}
+    with full_fp32():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dt) for x in (q32, k32, v32))
+            out = vmem_attention(q, k, v, scale)
+            torch.cuda.synchronize()
+            assert out.shape == q.shape and out.dtype == dt
+            ref = vmem_attention_plain(q, k, v, scale)
+            errs[dt] = max_err(out, ref)
+            check(f"K3 vs plain, {str(dt)[6:]}", errs[dt],
+                  bf16_tol(ref) if dt == torch.bfloat16 else TOL["k2_f32"])
+    q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+    ms = cuda_ms(lambda: vmem_attention(q, k, v, scale), reps=10)
+    plain_ms = cuda_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=3)
+    # SDPA's fused kernels take (batch, heads, tokens, dim): one head here
+    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
+                         reps=10)
+    nbytes = 4 * q.numel() * 2  # q, k, v read, the output written
+    bound_ms, bound_by, what = attention_bound(K3_B * NQ * NQ, d, nbytes)
+    log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  "
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {what})")
+    return {"name": "vmem_attention", "route": "cuda",
+            "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu",
+            "replaces": "batrack_tpu/ops/pallas_attention.py:156",
+            "max_abs_err": errs[torch.bfloat16], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------- tracker
 def tracker_input(images, depths, dev, gen):
     """A davis_demo append's tracker input: the first 12 frames, 400
@@ -334,6 +470,35 @@ def phase_tracker(cfg, images, depths, dev, gen):
             for k, v in kern.items():
                 check(f"{k}, {dtype}, kernels vs plain", v, tol[k])
         del ad
+    return tin
+
+
+def mesh_tracker_check(cfg, tin, mesh, gen):
+    """One full-width forward of `tin` (cfg.model's dtype, flow heads
+    damped) under the mesh, on every rank; rank 0 holds it against the
+    single-device forward on its own card at phase 3's bf16 limits, beside
+    phase 3's witness. Returns the differences on rank 0, None elsewhere."""
+    from batrack_tpu_torch.tracker import MDTrackerAdapter
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    ad = MDTrackerAdapter(cfg.model, seed=0, device=mesh.device, mesh=mesh)
+    damp_flow_heads(ad.model)
+    with full_fp32():
+        out, _ = ad.forward(tin.window_rgbd, tin.queries)
+    del ad
+    if mesh.rank != 0:
+        return None
+    single = MDTrackerAdapter(cfg.model, seed=0, device=mesh.device)
+    damp_flow_heads(single.model)
+    with full_fp32():
+        ref, _ = single.forward(tin.window_rgbd, tin.queries)
+    diff = {k: max_err(getattr(out, k), getattr(ref, k)) for k in ("tracks", "vis", "dynamic")}
+    _, wit = tracker_diffs(single, tin, gen)
+    log(f"  tracker forward, mesh of {mesh.size} vs one device {json.dumps(diff)}; witness, "
+        f"plain vs jittered plain on one device {json.dumps(wit)}")
+    for k, v in diff.items():
+        check(f"{k}, mesh of {mesh.size} vs one device", v, TOL["tracker_bf16"][k])
+    return diff
 
 
 # ---------------------------------------------------------------- main path
@@ -360,7 +525,7 @@ def profile_frames(slam, images, depths, frames):
 
 
 def phase_slam(cfg, images, depths, dev, profile=False):
-    from batrack_tpu_torch.ops.attention import fused_qkv_attention
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention, vmem_attention
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
     from batrack_tpu_torch.slam import BATrack
     from batrack_tpu_torch.tracker import MDTrackerAdapter
@@ -378,6 +543,7 @@ def phase_slam(cfg, images, depths, dev, profile=False):
 
     corr_sample.launches = 0
     fused_qkv_attention.launches = 0
+    vmem_attention.launches = 0
     t0 = time.perf_counter()
     for t in range(STAGE_FROM):
         if t == STEADY_FROM:
@@ -386,12 +552,14 @@ def phase_slam(cfg, images, depths, dev, profile=False):
         slam(t, images[t], depths[t], INTR)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
+    poses_at_stage = slam.state.poses[: slam.n].clone()  # phase 6 runs these frames
     slam.timer = StageTimer(enabled=True, sync=True)
     for t in range(STAGE_FROM, FRAMES):
         slam(t, images[t], depths[t], INTR)
     torch.cuda.synchronize()
     launches = {"corr_sample": corr_sample.launches,
-                "fused_qkv_attention": fused_qkv_attention.launches}
+                "fused_qkv_attention": fused_qkv_attention.launches,
+                "vmem_attention": vmem_attention.launches}
     stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
     n_frames = FRAMES
     if profile:
@@ -410,8 +578,10 @@ def phase_slam(cfg, images, depths, dev, profile=False):
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     log(f"  edges with weight > 0: {int((slam.state.e_weight[:, 0] > 0).sum())} (random "
         "weights put no track over the visibility gate; [ba] runs live edges)")
-    if not all(launches.values()):
+    if not (launches["corr_sample"] and launches["fused_qkv_attention"]):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if launches["vmem_attention"]:
+        raise AssertionError(f"K3 is on no path of either package, yet launched: {launches}")
     if poses.shape != (n_frames, 7) or not np.isfinite(poses).all():
         raise AssertionError(f"trajectory {poses.shape} not finite")
     if not np.allclose(np.linalg.norm(poses[:, 3:], axis=1), 1.0, atol=1e-4):
@@ -419,16 +589,51 @@ def phase_slam(cfg, images, depths, dev, profile=False):
     if (not np.array_equal(tstamps, np.arange(n_frames))
             or res["cams_T_world"].shape != (n_frames, 4, 4)):
         raise AssertionError("results do not cover every frame")
-    return launches
+    return launches, fps, poses_at_stage
 
 
 # ---------------------------------------------------------------- backend
+def on_device(state, dev):
+    """A copy of a SLAMState on `dev`."""
+    from batrack_tpu_torch.slam.state import SLAMState
+
+    return SLAMState(**{f.name: getattr(state, f.name).to(dev, copy=True)
+                        for f in dataclasses.fields(state)})
+
+
+def cpu_updates(before, n, dims, slam_cfg):
+    """One backend update on the CPU of `before` and of a copy whose edge
+    targets are jittered by one float32 rounding, the witness of the
+    system's conditioning: (updated, jittered updated, s per update)."""
+    from batrack_tpu_torch.slam.update import slam_update
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    cpu, jit = on_device(before, "cpu"), on_device(before, "cpu")
+    u = torch.rand(jit.e_target.shape, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    jit.e_target.mul_(1 + torch.finfo(torch.float32).eps * u)
+    t0 = time.perf_counter()
+    with full_fp32():
+        for state in (cpu, jit):
+            slam_update(state, n, True, dims, slam_cfg)
+    return cpu, jit, (time.perf_counter() - t0) / 2
+
+
+def update_diffs(a, ref, n, M):
+    """Largest |difference| of poses and patches, and edge-weight flips."""
+    return {"poses": max_err(a.poses[:n].cpu(), ref.poses[:n]),
+            "patches": max_err(a.patches[: n * M].cpu(), ref.patches[: n * M]),
+            "weight_flips": int(((a.e_weight[:, 0].cpu() > 0) != (ref.e_weight[:, 0] > 0)).sum())}
+
+
+def check_update(what, got, wit):
+    """Poses and patches within 10x the witness, and at least TOL's floor."""
+    for k in ("poses", "patches"):
+        check(f"{what}, {k}", got[k], max(TOL["ba_floor"], TOL["ba_witness_factor"] * wit[k]))
+
+
 def phase_ba(cfg, images, depths, dev):
     from batrack_tpu_torch.slam import BATrack
-    from batrack_tpu_torch.slam.state import SLAMState
-    from batrack_tpu_torch.slam.update import slam_update
     from batrack_tpu_torch.tracker import MDTrackerAdapter
-    from batrack_tpu_torch.utils.config import full_fp32
     from batrack_tpu_torch.utils.profiling import StageTimer
 
     cfg = copy.deepcopy(cfg)
@@ -456,41 +661,233 @@ def phase_ba(cfg, images, depths, dev):
     if not bool(torch.isfinite(st.poses[:n]).all()):
         raise AssertionError("poses not finite")
 
-    def on_cpu(state):
-        return SLAMState(**{f.name: getattr(state, f.name).cpu().clone()
-                            for f in dataclasses.fields(state)})
-
-    cpu, jit = on_cpu(st), on_cpu(st)
-    u = torch.rand(jit.e_target.shape, generator=torch.Generator().manual_seed(1)) * 2 - 1
-    jit.e_target.mul_(1 + torch.finfo(torch.float32).eps * u)
+    before = on_device(st, "cpu")
     slam.update()
-    card = on_cpu(st)
-    t0 = time.perf_counter()
-    with full_fp32():
-        for state in (cpu, jit):
-            slam_update(state, n, True, slam.dims, cfg.slam)
-    cpu_s = (time.perf_counter() - t0) / 2
-
-    def diffs(a):
-        return {"poses": max_err(a.poses[:n], cpu.poses[:n]),
-                "patches": max_err(a.patches[: n * M], cpu.patches[: n * M]),
-                "weight_flips": int(((a.e_weight[:, 0] > 0) != (cpu.e_weight[:, 0] > 0)).sum())}
-    got, wit = diffs(card), diffs(jit)
+    cpu, jit, cpu_s = cpu_updates(before, n, slam.dims, cfg.slam)
+    got, wit = update_diffs(st, cpu, n, M), update_diffs(jit, cpu, n, M)
     log(f"  one update, card vs CPU {json.dumps(got)}; witness, CPU vs CPU with e_target "
         f"jittered by one float32 rounding {json.dumps(wit)} (CPU update {cpu_s:.1f} s)")
-    for k in ("poses", "patches"):
-        check(f"backend update, card vs CPU, {k}", got[k],
-              max(TOL["ba_floor"], TOL["ba_witness_factor"] * wit[k]))
+    check_update("backend update, card vs CPU", got, wit)
+    return {"before": before, "cpu": cpu, "witness": wit, "n": n, "dims": slam.dims,
+            "cfg": cfg}
+
+
+# ---------------------------------------------------------------- mesh
+def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
+    """The multi-device path at one rank: BATrack and MDTrackerAdapter with
+    mesh=get_mesh(1) over phase 4's frames; then one tracker forward of
+    phase 3's input under the mesh against the single-device forward, and
+    the patch-sharded backend update on phase 5's state against its CPU
+    update."""
+    import torch.distributed as dist
+
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention, vmem_attention
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+    from batrack_tpu_torch.parallel import get_mesh, sharded_slot_slam_update
+    from batrack_tpu_torch.slam import BATrack
+    from batrack_tpu_torch.tracker import MDTrackerAdapter
+    from batrack_tpu_torch.utils.config import full_fp32
+    from batrack_tpu_torch.utils.profiling import StageTimer
+
+    s = cfg.slam
+    mesh = get_mesh(1, device=dev)  # a one-rank NCCL group, made in this process
+    try:
+        log(f"[mesh] BATrack + MDTrackerAdapter with mesh=get_mesh(1) ({dist.get_backend()}, "
+            f"{mesh.size} rank on {mesh.device}), davis_demo, {FRAMES} frames")
+        slam = BATrack(cfg, HT, WD, seed=0, device=dev, mesh=mesh)
+        slam.tracker = MDTrackerAdapter(
+            cfg.model, seed=0, device=dev, mesh=mesh,
+            backward_tracking=s.backward_tracking and s.S_slam > cfg.model.S)
+        corr_sample.launches = 0
+        fused_qkv_attention.launches = 0
+        fused_qkv_attention.kv_launches = 0
+        vmem_attention.launches = 0
+        for t in range(STAGE_FROM):
+            if t == STEADY_FROM:
+                torch.cuda.synchronize()
+                t_steady = time.perf_counter()
+            slam(t, images[t], depths[t], INTR)
+        torch.cuda.synchronize()
+        fps = (STAGE_FROM - STEADY_FROM) / (time.perf_counter() - t_steady)
+        traj_err = max_err(slam.state.poses[: slam.n], main_poses)
+        slam.timer = StageTimer(enabled=True, sync=True)
+        for t in range(STAGE_FROM, FRAMES):
+            slam(t, images[t], depths[t], INTR)
+        torch.cuda.synchronize()
+        launches = {"corr_sample": corr_sample.launches,
+                    "fused_qkv_attention": fused_qkv_attention.launches,
+                    "fused_qkv_attention_kv": fused_qkv_attention.kv_launches,
+                    "vmem_attention": vmem_attention.launches}
+        appends = slam.append_count
+        stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
+        log(f"  launches {launches} over {appends} appends")
+        log(f"  frames/s {fps:.3f} (frames {STEADY_FROM}-{STAGE_FROM - 1}); phase 4, same "
+            f"frames, no mesh: {main_fps:.3f}")
+        log(f"  stage ms per call (synchronised, frames {STAGE_FROM}-{FRAMES - 1}): "
+            f"{json.dumps(stage_ms)}")
+        if not (launches["corr_sample"] and launches["fused_qkv_attention_kv"] >= appends
+                and launches["fused_qkv_attention_kv"] == launches["fused_qkv_attention"]):
+            raise AssertionError("under a mesh every append must run K1 and K2 with a kv= "
+                                 f"source, and K2 only so: {launches}")
+        if launches["vmem_attention"]:
+            raise AssertionError(f"K3 is on no path of either package, yet launched: {launches}")
+        # zero edge weights, as in phase 4: the poses are the motion model's,
+        # so this holds the mesh path's ring and BA plumbing, not the tracker
+        wit = ba["witness"]["poses"]
+        tol = max(TOL["ba_floor"], TOL["ba_witness_factor"] * wit)
+        check(f"trajectory of {STAGE_FROM} frames, mesh vs phase 4 (limit 10x phase 5's "
+              f"witness {wit:.3e})", traj_err, tol)
+
+        # the tracker under the mesh (sharded K1, K2 kv=, gathered output)
+        mesh_tracker_check(cfg, tin, mesh, gen)
+
+        # patch-sharded backend update on phase 5's live edges against its CPU update
+        n, M = ba["n"], ba["dims"].M
+        state = on_device(ba["before"], dev)
+        with full_fp32():
+            sharded_slot_slam_update(state, n, True, ba["dims"], ba["cfg"].slam, mesh)
+        torch.cuda.synchronize()
+        got = update_diffs(state, ba["cpu"], n, M)
+        log(f"  patch-sharded update on phase 5's state, card vs CPU {json.dumps(got)}")
+        check_update("patch-sharded backend update, card vs CPU", got, ba["witness"])
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+# ---------------------------------------------------------------- --ranks
+def phase_ranks(cfg, images, depths, mesh, gen):
+    """The multi-device path at the mesh's world size, one process per
+    device (torchrun). First one full-width tracker forward of phase 3's
+    input (bf16, flow heads damped) under the mesh, held on rank 0 against
+    the single-device forward on its own card, beside phase 3's witness.
+    Then BATrack + MDTrackerAdapter with the mesh and live edges as in
+    phase 5 (VIS_THRESHOLD=0, flow heads damped) for FRAMES frames:
+    frames/s, stage ms and launches on rank 0, and the largest difference
+    between the ranks' replicated trajectories. Last, one patch-sharded
+    backend update of the final live-edge state at this world size, held
+    on rank 0 against the CPU update of the same state within 10x the
+    witness of that state (as phase 5)."""
+    import torch.distributed as dist
+
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+    from batrack_tpu_torch.parallel import sharded_slot_slam_update
+    from batrack_tpu_torch.slam import BATrack
+    from batrack_tpu_torch.tracker import MDTrackerAdapter
+    from batrack_tpu_torch.utils.config import full_fp32
+    from batrack_tpu_torch.utils.profiling import StageTimer
+
+    dev, lead = mesh.device, mesh.rank == 0
+    if lead:
+        log(f"[ranks] tracker forward under a mesh of {mesh.size} ranks "
+            f"({dist.get_backend()}) vs one device, {cfg.model.compute_dtype}, flow heads "
+            f"x{FLOW_HEAD_DAMPING}")
+    tin = tracker_input(images, depths, dev, gen)  # the same on every rank: same seed
+    diff = mesh_tracker_check(cfg, tin, mesh, gen)
+
+    cfg = copy.deepcopy(cfg)
+    cfg.slam.VIS_THRESHOLD = 0.0
+    if lead:
+        log(f"[ranks] BATrack + MDTrackerAdapter, mesh of {mesh.size} ranks, davis_demo with "
+            f"VIS_THRESHOLD=0 and flow heads x{FLOW_HEAD_DAMPING}, {FRAMES} frames")
+    slam = BATrack(cfg, HT, WD, seed=0, device=dev, mesh=mesh)
+    slam.tracker = MDTrackerAdapter(cfg.model, seed=0, device=dev, mesh=mesh)
+    damp_flow_heads(slam.tracker.model)
+    corr_sample.launches = fused_qkv_attention.launches = fused_qkv_attention.kv_launches = 0
+    for t in range(STAGE_FROM):
+        if t == STEADY_FROM:
+            torch.cuda.synchronize(dev)
+            t_steady = time.perf_counter()
+        slam(t, images[t], depths[t], INTR)
+    torch.cuda.synchronize(dev)
+    fps = (STAGE_FROM - STEADY_FROM) / (time.perf_counter() - t_steady)
+    slam.timer = StageTimer(enabled=True, sync=True)
+    for t in range(STAGE_FROM, FRAMES):
+        slam(t, images[t], depths[t], INTR)
+    torch.cuda.synchronize(dev)
+    launches = {"corr_sample": corr_sample.launches,
+                "fused_qkv_attention_kv": fused_qkv_attention.kv_launches,
+                "fused_qkv_attention": fused_qkv_attention.launches}
+
+    # the patch-sharded update at this world size (all_reduce of the pose
+    # blocks over every rank), on the replicated live-edge state
+    n, M = slam.n, slam.dims.M
+    before = on_device(slam.state, "cpu")
+    state = on_device(before, dev)
+    with full_fp32():
+        sharded_slot_slam_update(state, n, True, slam.dims, cfg.slam, mesh)
+    torch.cuda.synchronize(dev)
+    if lead:
+        cpu, jit, _ = cpu_updates(before, n, slam.dims, cfg.slam)
+        ba_got, ba_wit = update_diffs(state, cpu, n, M), update_diffs(jit, cpu, n, M)
+        log(f"  patch-sharded update at {mesh.size} ranks on frame {n}'s live edges, card vs "
+            f"CPU {json.dumps(ba_got)}; witness, CPU vs CPU with e_target jittered "
+            f"{json.dumps(ba_wit)}")
+        check_update(f"patch-sharded backend update at {mesh.size} ranks, card vs CPU",
+                     ba_got, ba_wit)
+
+    poses, _ = slam.terminate()
+    mine = torch.from_numpy(poses).to(dev).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+    dist.all_gather(parts, mine, group=mesh.group)
+    rank_spread = max(max_err(p, parts[0]) for p in parts)
+    if not lead:
+        return None
+    result = {"world": mesh.size, "frames_per_s": fps, "launches": launches,
+              "appends": slam.append_count, "rank_spread": rank_spread,
+              "stage_ms": {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()},
+              "live_edges": int((slam.state.e_weight[:, 0] > 0).sum()),
+              "tracker_mesh_vs_one_device": diff,
+              "ba_update_vs_cpu": ba_got, "ba_update_witness": ba_wit}
+    log(f"  {json.dumps(result)}")
+    if not (np.isfinite(poses).all() and launches["corr_sample"]
+            and launches["fused_qkv_attention_kv"] >= slam.append_count):
+        raise AssertionError(f"trajectory not finite or a kernel did not launch: {launches}")
+    return result
+
+
+def main_ranks() -> int:
+    """chip_smoke.py --ranks under torchrun: phase_ranks on every rank."""
+    import torch.distributed as dist
+
+    from batrack_tpu_torch.ops import cuda_build
+    from batrack_tpu_torch.parallel import get_mesh, init_distributed
+    from batrack_tpu_torch.utils.config import Config
+    from batrack_tpu_torch.utils.synth import make_scene
+
+    init_distributed()
+    mesh = get_mesh()
+    try:
+        if mesh.rank == 0:
+            log(f"source sha256 {source_digest()}; torch {torch.__version__} on "
+                f"{mesh.size} x {torch.cuda.get_device_name(mesh.device)}")
+            cuda_build.build(["corr_sample", "fused_qkv_attention"])
+        dist.barrier()
+        images, depths, _ = make_scene(FRAMES, HT, WD, INTR)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(0)
+        result = phase_ranks(Config(), images, depths, mesh, gen)
+        if result is not None:
+            print(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also trace two SLAM frames with torch.profiler")
+    parser.add_argument("--ranks", action="store_true",
+                        help="run only the multi-device path, one process per GPU: "
+                             "torchrun --standalone --nproc_per_node N chip_smoke.py --ranks")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU", file=sys.stderr)
         return 1
+    if args.ranks:
+        return main_ranks()
     from batrack_tpu_torch.ops import cuda_build
     from batrack_tpu_torch.utils.config import Config
     from batrack_tpu_torch.utils.synth import make_scene
@@ -515,16 +912,22 @@ def main() -> int:
     gen.manual_seed(0)
     k1 = phase_k1(dev, gen)
     k2 = phase_k2(dev, gen)
+    k2kv = phase_k2_kv(dev, gen)
+    k3 = phase_k3(dev, gen)
 
     cfg = Config()  # davis_demo defaults
     images, depths, _ = make_scene(FRAMES + 2, HT, WD, INTR)
-    phase_tracker(cfg, images, depths, dev, gen)
-    launches = phase_slam(cfg, images, depths, dev, args.profile)
-    phase_ba(cfg, images, depths, dev)
+    tin = phase_tracker(cfg, images, depths, dev, gen)
+    launches, fps, poses_at_stage = phase_slam(cfg, images, depths, dev, args.profile)
+    ba = phase_ba(cfg, images, depths, dev)
+    mesh_launches = phase_mesh(cfg, images, depths, dev, fps, poses_at_stage, ba, tin, gen)
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]
-    print(json.dumps({"kernels": [k1, k2]}))
+    k2kv["launches"] = mesh_launches["fused_qkv_attention_kv"]
+    # K3 is on no path: phases 4 and 6 each read 0 (checked there)
+    k3["launches"] = launches["vmem_attention"] + mesh_launches["vmem_attention"]
+    print(json.dumps({"kernels": [k1, k2, k2kv, k3]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,9 @@ from test_slam_e2e import HT, INTR, WD, gt_trajectory, plane_depth, small_config
 from torch_parity import assert_close, t
 
 
-@pytest.fixture(scope="module")
-def snapshot():
+def make_snapshot():
+    """(JAX config, dims, n, numpy state) of the JAX BATrack after 14
+    frames, poses perturbed."""
     rng = np.random.default_rng(3)
     poses = gt_trajectory(16)
     depths = np.stack([plane_depth(p) for p in poses])
@@ -42,6 +43,11 @@ def snapshot():
     st = {f: np.array(getattr(slam.state, f)) for f in slam.state._fields}
     st["poses"][1:slam.n, :3] += rng.normal(size=(slam.n - 1, 3)).astype(np.float32) * 0.01
     return cfg, dims, slam.n, st
+
+
+@pytest.fixture(scope="module")
+def snapshot():
+    return make_snapshot()
 
 
 def _port_cfg(cfg):

@@ -3,9 +3,10 @@ PyTorch versions. This file imports no JAX, so it also runs on a GPU
 machine without it: `python -m pytest tests/test_torch_kernels.py -q`.
 
 On the CPU it checks the layout code around the kernels (the packed bf16
-pyramid, the plain attention against a textbook split-head softmax). The
-kernel tests are marked gpu and skip without a CUDA device. Tolerances:
-K1 1e-4 (same bf16 maps, float32 sums in another order); K2 1e-4 in
+pyramid, the plain attention against a textbook split-head softmax, the
+kv= source and K3 against the packed plain version). The kernel tests are
+marked gpu and skip without a CUDA device. Tolerances: K1 1e-4 (same bf16
+maps, float32 sums in another order); K2 (packed and kv=) and K3 1e-4 in
 float32, and in bf16 two bf16 ulps of the largest output magnitude
 (`bf16_tol`): both versions cast the probabilities to bf16 for the PV
 product (the plain one after normalising, the kernel before, relative to
@@ -21,7 +22,12 @@ import pytest
 import torch
 
 from batrack_tpu_torch.ops import corr
-from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+from batrack_tpu_torch.ops.attention import (
+    fused_qkv_attention,
+    fused_qkv_attention_plain,
+    vmem_attention,
+    vmem_attention_plain,
+)
 from batrack_tpu_torch.ops.corr_kernel import corr_sample, corr_sample_plain, pack_pyramid
 from batrack_tpu_torch.utils.config import full_fp32
 
@@ -83,6 +89,27 @@ def test_attention_plain_matches_split_head_softmax(rng, masked):
                                atol=0, rtol=0)
 
 
+def test_attention_plain_kv_source_is_the_packed_layout(rng):
+    """A kv= source holding the same keys and values, packed (B, N, 3C) or
+    slim (B, N, 2C), gives the packed result exactly; K3's plain version is
+    the one-head packed one."""
+    B, N, H, d = 2, 19, 3, 16
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * d)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=N) > 0.3)
+    ref = fused_qkv_attention_plain(qkv, H, 0.3, mask)
+    for kv in (qkv.clone(), qkv[..., H * d:].clone()):
+        assert torch.equal(fused_qkv_attention_plain(qkv, H, 0.3, mask, kv=kv), ref)
+    q, k, v = (qkv[..., :d], qkv[..., H * d: H * d + d], qkv[..., 2 * H * d: 2 * H * d + d])
+    one = torch.cat([q, k, v], -1)
+    assert torch.equal(vmem_attention_plain(q, k, v, 0.3), fused_qkv_attention_plain(one, 1, 0.3))
+
+
+def test_attention_kv_source_of_wrong_width_raises(rng):
+    qkv = torch.zeros((1, 5, 3 * 96))
+    with pytest.raises(ValueError, match="kv"):
+        fused_qkv_attention(qkv, 2, 0.1, kv=torch.zeros((1, 7, 96)))
+
+
 # ---------------------------------------------------------------- on the card
 @pytest.mark.gpu
 @pytest.mark.parametrize("L,shape", [(4, (3, 70, 24, 32)), (2, (2, 33, 9, 13))])
@@ -116,3 +143,48 @@ def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, masked, N, H):
         ref = fused_qkv_attention_plain(qkv, H, d ** -0.5, mask)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", ["slim", "packed"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_kv_kernel_matches_plain_on_gpu(rng, cuda, dtype, source, masked):
+    """K2 with a separate key/value source: queries (3, 150) against
+    Nk = 333 keys of a slim or packed source."""
+    B, N, Nk, H, d = 3, 150, 333, 8, 48
+    C = H * d
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(cuda, dtype)
+    width = (2 if source == "slim" else 3) * C
+    kv = torch.from_numpy(rng.normal(size=(B, Nk, width)).astype(np.float32)).to(cuda, dtype)
+    mask = torch.from_numpy(rng.uniform(size=Nk) > 0.3).to(cuda) if masked else None
+    before, before_kv = fused_qkv_attention.launches, fused_qkv_attention.kv_launches
+    out = fused_qkv_attention(qkv, H, d ** -0.5, mask, kv=kv)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention.launches == before + 1
+    assert fused_qkv_attention.kv_launches == before_kv + 1
+    assert out.dtype == dtype and out.shape == (B, N, C)
+    with full_fp32():
+        ref = fused_qkv_attention_plain(qkv, H, d ** -0.5, mask, kv=kv)
+    tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [37, 333])
+def test_vmem_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, N):
+    """K3 on (B, N, 48)."""
+    q, k, v = (torch.from_numpy(rng.normal(size=(5, N, 48)).astype(np.float32)).to(cuda, dtype)
+               for _ in range(3))
+    before = vmem_attention.launches
+    out = vmem_attention(q, k, v, 48 ** -0.5)
+    torch.cuda.synchronize()
+    assert vmem_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    with full_fp32():
+        ref = vmem_attention_plain(q, k, v, 48 ** -0.5)
+    tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    with pytest.raises(ValueError, match="48"):
+        vmem_attention(q[..., :32], k[..., :32], v[..., :32], 0.1)

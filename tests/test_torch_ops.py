@@ -3,9 +3,10 @@
 Tolerances (float32): sampling and embeddings 1e-5; the plain S-major
 correlation against ops/corr.py 1e-4; K1's plain version against the Pallas
 kernel in interpret mode 2e-2 (both read the feature maps in bf16); K2's
-plain version against the Pallas kernel in interpret mode 2e-5. The CUDA
-kernels themselves are held against their plain versions on the card in
-tests/test_torch_kernels.py.
+plain version against the Pallas kernel in interpret mode 2e-5, with a
+separate kv= source 1e-5; K3's plain version against the Pallas kernel in
+interpret mode 1e-5. The CUDA kernels themselves are held against their
+plain versions on the card in tests/test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -16,7 +17,12 @@ from batrack_tpu.ops import corr as jcorr
 from batrack_tpu.ops import embeddings as jemb
 from batrack_tpu.ops import sampling as jsamp
 from batrack_tpu_torch.ops import corr, embeddings, sampling
-from batrack_tpu_torch.ops.attention import fused_qkv_attention
+from batrack_tpu_torch.ops.attention import (
+    fused_qkv_attention,
+    fused_qkv_attention_plain,
+    vmem_attention,
+    vmem_attention_plain,
+)
 from batrack_tpu_torch.ops.corr_kernel import corr_sample, corr_sample_plain, pack_pyramid
 from torch_parity import assert_close, j, t
 
@@ -117,3 +123,37 @@ def test_attention_plain_matches_pallas_interpret(rng, masked):
                  key_mask=None if mask is None else j(mask))
     out = fused_qkv_attention(t(qkv), H, d ** -0.5, None if mask is None else t(mask))
     assert_close(out, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("source", ["slim", "packed"])
+def test_attention_kv_source_plain_matches_pallas_interpret(rng, source, masked):
+    """K2 with a separate key/value source (the track-sharded path): queries
+    from qkv (N = 37), keys and values from a slim (B, Nk, 2C) or packed
+    (B, Nk, 3C) array with Nk = 53, key mask of length Nk."""
+    from batrack_tpu.ops.pallas_attention import fused_qkv_attention as jfused
+
+    B, N, Nk, H, d = 2, 37, 53, 2, 48
+    C = H * d
+    qkv = rng.normal(size=(B, N, 3 * C)).astype(np.float32)
+    kv = rng.normal(size=(B, Nk, (2 if source == "slim" else 3) * C)).astype(np.float32)
+    mask = rng.uniform(size=Nk) > 0.3 if masked else None
+    ref = jfused(j(qkv), H, d ** -0.5, interpret=True, kv=j(kv),
+                 key_mask=None if mask is None else j(mask))
+    tmask = None if mask is None else t(mask)
+    out = fused_qkv_attention(t(qkv), H, d ** -0.5, tmask, kv=t(kv))  # CPU -> plain version
+    assert out.shape == (B, N, C)
+    assert_close(out, ref, atol=1e-5)
+    assert_close(fused_qkv_attention_plain(t(qkv), H, d ** -0.5, tmask, kv=t(kv)), out, atol=0)
+
+
+def test_vmem_attention_plain_matches_pallas_interpret(rng):
+    """K3: single-head softmax(q k^T * scale) v over (B, N, 48)."""
+    from batrack_tpu.ops.pallas_attention import vmem_attention as jvmem
+
+    q, k, v = (rng.normal(size=(3, 37, 48)).astype(np.float32) for _ in range(3))
+    ref = jvmem(j(q), j(k), j(v), 48 ** -0.5, interpret=True)
+    out = vmem_attention(t(q), t(k), t(v), 48 ** -0.5)  # CPU tensor -> plain version
+    assert out.shape == (3, 37, 48)
+    assert_close(out, ref, atol=1e-5)
+    assert_close(vmem_attention_plain(t(q), t(k), t(v), 48 ** -0.5), out, atol=0)

@@ -19,6 +19,7 @@ from batrack_tpu.geometry import se3 as jse3
 from batrack_tpu.utils import config as jconfig
 from batrack_tpu.utils.synth import make_scene as jmake_scene
 from batrack_tpu_torch.ops import attention, corr_kernel
+from batrack_tpu_torch.parallel import Mesh, get_mesh, init_distributed
 from batrack_tpu_torch.slam import BATrack
 from batrack_tpu_torch.tracker import MDTrackerAdapter
 from batrack_tpu_torch.utils import config
@@ -32,6 +33,8 @@ def _submodules():
 
 
 def test_import_leaves_jax_and_batrack_tpu_out():
+    assert {"batrack_tpu_torch.parallel.mesh", "batrack_tpu_torch.parallel.shard_kernels",
+            "batrack_tpu_torch.parallel.sharded_slot_ba"} <= set(_submodules())
     code = (
         "import importlib, sys\n"
         f"for m in {_submodules()!r}: importlib.import_module(m)\n"
@@ -67,6 +70,43 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         config.resolve_device()
     assert config.resolve_device("cpu") == torch.device("cpu")
+    # the multi-device entry points too
+    mesh = Mesh(group=None, rank=0, size=1, device=torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BATrack(cfg, 48, 64, mesh=mesh)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MDTrackerAdapter(cfg.model, mesh=mesh)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_mesh(1)
+
+
+def test_get_mesh_needs_a_group_for_more_than_one_rank(monkeypatch):
+    """Without an initialised process group only a one-rank mesh can be
+    made; more ranks need torchrun and init_distributed(), which outside
+    torchrun (no WORLD_SIZE) is a no-op."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert not torch.distributed.is_initialized()
+    init_distributed(device="cpu")
+    with pytest.raises(RuntimeError, match="no process group"):
+        get_mesh(2, device="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def test_mesh_entry_points_check_the_mesh(monkeypatch):
+    """A mesh on another device than the one asked for, or one that
+    disagrees with slam.mesh_devices, is refused; slam.mesh_devices without
+    a mesh too."""
+    cfg = config.Config()
+    mesh = Mesh(group=None, rank=0, size=2, device=torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="mesh"):
+        MDTrackerAdapter(cfg.model, mesh=mesh)
+    monkeypatch.undo()
+    cfg.slam.mesh_devices = 4
+    with pytest.raises(ValueError, match="mesh_devices"):
+        BATrack(cfg, 48, 64, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="mesh_devices"):
+        BATrack(cfg, 48, 64, device="cpu")
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -79,7 +119,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         corr_kernel.corr_sample(pyr, torch.zeros((3, 2, 128), device="meta"),
                                 torch.zeros((2, 3, 2), device="meta"), 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.vmem_attention(*(torch.zeros((2, 8, 48), device="meta") for _ in range(3)), 0.1)
     assert attention.fused_qkv_attention.launches == 0
+    assert attention.fused_qkv_attention.kv_launches == 0
+    assert attention.vmem_attention.launches == 0
     assert corr_kernel.corr_sample.launches == 0
 
 
