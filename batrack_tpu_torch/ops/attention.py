@@ -15,8 +15,10 @@ softmax(q k^T * scale) v over (B, N, 48). The JAX package calls it nowhere;
 it is ported so that every Pallas kernel of the repository has a
 counterpart.
 
-bf16 input runs on the tensor cores (mma.sync), float32 input on the float32
-pipes. What bounds the kernels on the H100 and how they are laid out is in
+bf16 input runs on Hopper's tensor cores (TMA-fed shared-memory ring,
+wgmma, 128 queries per block), float32 input on the float32 pipes. The bf16
+kernel reads K and V by TMA, so the key and value lanes must start 16-byte
+aligned. What bounds the kernels on the H100 and how they are laid out is in
 the source note of the .cu file. On a CUDA tensor each wrapper launches the
 kernel or raises; on a CPU tensor it runs the plain version
 (`fused_qkv_attention_plain`, `vmem_attention_plain`), which the kernel is
@@ -97,8 +99,8 @@ def _launch(q, k, v, key_mask, out, B, N, Nk, heads, q_stride, kv_stride, scale,
 
 
 def _kernel_input(x: torch.Tensor, what: str) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the bf16 kernel reads 16-byte rows of
-    K and V); float32 or bf16 only."""
+    """Contiguous and 16-byte aligned (the bf16 kernel's TMA copies need
+    16-byte aligned bases and row strides); float32 or bf16 only."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -158,7 +160,7 @@ def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     """softmax(q k^T * scale) v over (B, N, D) with D = 48 -> (B, N, D).
 
     block_q is the TPU kernel's query tiling; it is accepted and ignored
-    (the CUDA kernel tiles queries by 64)."""
+    (the CUDA kernel tiles queries by 128 in bf16 and float32)."""
     del block_q
     if q.device.type == "cpu":
         return vmem_attention_plain(q, k, v, scale)

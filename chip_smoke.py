@@ -49,7 +49,12 @@ Phase 2 also holds K2 with a kv= source (queries of all 2400 tracks, the
 shape phase 6 gives it at one rank, and of a quarter of them, one rank of
 a 4-way track shard) and K3 (vmem_attention, on no path of the JAX
 package) against their plain versions, and times them. K3's launch
-counter is read around phases 4 and 6 and must stay 0.
+counter is read around phases 4 and 6 and must stay 0. Last in phase 2,
+K2 packed, K2 kv= (slim and packed sources) and K3 are held against their
+plain versions at the edges of the bf16 kernel's tiling: query and key
+counts that leave its 128-query and 128-key tiles ragged, fewer keys than
+one tile, and key masks that mask whole key tiles. Phases 4 and 6 check
+24 attention launches per append (6 space blocks x 4 iterations).
 
 It then prints one {"kernels": [...]} line, the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
@@ -76,18 +81,23 @@ import numpy as np
 import torch
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s,
-# bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores, and the
-# special-function units' exp rate (132 SMs x 16 per clock x 1.83 GHz)
+# bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores. The
+# special-function units' exp rate is not published: 132 SMs x 16 per clock
+# at the card's highest SM clock, 1.98 GHz (nvidia-smi clocks.max.sm, printed
+# by main), the fastest the units can run; the data sheet's bf16 rate is
+# taken at 1.83 GHz, and at 1.98 GHz (1070e12) it still binds no attention
+# bound here, the exponentials do.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
-SFU_OPS_S = 132 * 16 * 1.83e9
+SFU_OPS_S = 132 * 16 * 1.98e9
 
 # davis_demo shapes of the tracker append (configs/davis_demo.yaml)
 S, C, H4, W4, LEVELS, RADIUS = 12, 128, 96, 128, 4, 3
 NQ = 6 * 400                      # n_src source frames x PATCHES_PER_FRAME
 HIDDEN, HEADS = 384, 8
 SHARDS = 4                        # K2 kv=: one rank's queries of a 4-way track shard
+SPACE_LAUNCHES = 6 * 4            # K2 per append: 6 space blocks x 4 refinement iterations
 K3_B = S * HEADS                  # K3: (batch x heads, tracks, head dim) of space attention
 FRAMES, STEADY_FROM, STAGE_FROM = 40, 16, 32
 HT, WD = 480, 640
@@ -270,10 +280,10 @@ def phase_k2(dev, gen):
                 check(f"K2 vs plain, {str(dt)[6:]}, key mask {'no' if m is None else 'yes'}",
                       err, tol)
     qkv = qkv32.to(torch.bfloat16)  # the main path: bf16, no key mask (one window)
-    ms = cuda_ms(lambda: fused_qkv_attention(qkv, HEADS, scale), reps=10)
+    ms = cuda_ms(lambda: fused_qkv_attention(qkv, HEADS, scale), reps=30)
     plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(qkv, HEADS, scale), reps=3)
     q, k, v = (x.contiguous() for x in qkv.view(S, NQ, 3, HEADS, d).permute(2, 0, 3, 1, 4))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=10)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=30)
 
     # bound: qkv read once and the output written once, against the QK^T and
     # PV products on the bf16 tensor cores and one exp per logit
@@ -340,12 +350,12 @@ def phase_k2_kv(dev, gen):
         # mask (one window, 2400 tracks divide over the ranks)
         qkv = qkv32.to(torch.bfloat16)
         kv = kv32[..., HIDDEN:].to(torch.bfloat16).contiguous()
-        ms = cuda_ms(lambda: fused_qkv_attention(qkv, HEADS, scale, kv=kv), reps=10)
+        ms = cuda_ms(lambda: fused_qkv_attention(qkv, HEADS, scale, kv=kv), reps=30)
         plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(qkv, HEADS, scale, kv=kv), reps=3)
         q = qkv[..., :HIDDEN].reshape(S, nq, HEADS, d).transpose(1, 2).contiguous()
         k, v = (x.contiguous() for x in kv.view(S, NQ, 2, HEADS, d).permute(2, 0, 3, 1, 4))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-                             reps=10)
+                             reps=30)
 
         # bound: the q lanes and the slim source read once, the output
         # written once (the kernel never needs the k/v lanes of qkv)
@@ -385,12 +395,12 @@ def phase_k3(dev, gen):
             check(f"K3 vs plain, {str(dt)[6:]}", errs[dt],
                   bf16_tol(ref) if dt == torch.bfloat16 else TOL["k2_f32"])
     q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
-    ms = cuda_ms(lambda: vmem_attention(q, k, v, scale), reps=10)
+    ms = cuda_ms(lambda: vmem_attention(q, k, v, scale), reps=30)
     plain_ms = cuda_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=3)
     # SDPA's fused kernels take (batch, heads, tokens, dim): one head here
     q4, k4, v4 = q[:, None], k[:, None], v[:, None]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
-                         reps=10)
+                         reps=30)
     nbytes = 4 * q.numel() * 2  # q, k, v read, the output written
     bound_ms, bound_by, what = attention_bound(K3_B * NQ * NQ, d, nbytes)
     log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  "
@@ -400,6 +410,70 @@ def phase_k3(dev, gen):
             "replaces": "batrack_tpu/ops/pallas_attention.py:156",
             "max_abs_err": errs[torch.bfloat16], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------- tiling edges
+def tile_mask(nk, dev, gen):
+    """(nk,) bool: 70 % of the keys live at random, with keys 0-127 (the
+    bf16 kernel's whole first key tile) and 256-383 (a whole later tile)
+    masked; below 129 keys every key is masked (each query then averages
+    all nk values, in the kernel as in the plain version)."""
+    m = torch.rand((nk,), generator=gen, device=dev) > 0.3
+    m[:128] = False
+    m[256:384] = False
+    return m
+
+
+def phase_edges(dev, gen):
+    """K2 packed, K2 kv= and K3 against their plain versions where the bf16
+    kernel's tiles are ragged or whole key tiles are masked, in bf16 (two
+    ulps) and float32 (TOL["k2_f32"]). Returns the largest bf16 error."""
+    from batrack_tpu_torch.ops.attention import (fused_qkv_attention, fused_qkv_attention_plain,
+                                                 vmem_attention, vmem_attention_plain)
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    d = HIDDEN // HEADS
+    scale = d ** -0.5
+    log("[edges] K2 and K3 at ragged 128-query/128-key tiles and masked whole key tiles")
+    worst = 0.0
+    # (source, queries, keys, heads): packed N=333 and 70, kv= 150 queries
+    # against 333 keys and against 37 (fewer than one key tile)
+    cases = [(None, 333, 333, 8), (None, 70, 70, 2), ("slim", 150, 333, 8),
+             ("packed", 150, 333, 8), ("slim", 150, 37, 8), ("packed", 150, 37, 2)]
+    with full_fp32():
+        for source, n, nk, heads in cases:
+            width = heads * d
+            qkv32 = torch.randn((3, n, 3 * width), generator=gen, device=dev)
+            kv32 = None if source is None else torch.randn(
+                (3, nk, (2 if source == "slim" else 3) * width), generator=gen, device=dev)
+            for dt in (torch.bfloat16, torch.float32):
+                qkv = qkv32.to(dt)
+                kv = None if kv32 is None else kv32.to(dt)
+                for m in (None, tile_mask(nk, dev, gen)):
+                    out = fused_qkv_attention(qkv, heads, scale, m, kv=kv)
+                    torch.cuda.synchronize()
+                    assert out.shape == (3, n, width) and out.dtype == dt
+                    ref = fused_qkv_attention_plain(qkv, heads, scale, m, kv=kv)
+                    err = max_err(out, ref)
+                    bf16 = dt == torch.bfloat16
+                    worst = max(worst, err) if bf16 else worst
+                    check(f"K2 {source or 'packed qkv'} source, {n} queries x {nk} keys, "
+                          f"{heads} heads, {str(dt)[6:]}, key mask "
+                          f"{'no' if m is None else 'whole tiles'}",
+                          err, bf16_tol(ref) if bf16 else TOL["k2_f32"])
+        for n in (37, 200):
+            q32, k32, v32 = (torch.randn((4, n, d), generator=gen, device=dev) for _ in range(3))
+            for dt in (torch.bfloat16, torch.float32):
+                q, k, v = (x.to(dt) for x in (q32, k32, v32))
+                out = vmem_attention(q, k, v, scale)
+                torch.cuda.synchronize()
+                ref = vmem_attention_plain(q, k, v, scale)
+                err = max_err(out, ref)
+                bf16 = dt == torch.bfloat16
+                worst = max(worst, err) if bf16 else worst
+                check(f"K3, N={n}, {str(dt)[6:]}", err,
+                      bf16_tol(ref) if bf16 else TOL["k2_f32"])
+    return worst
 
 
 # ---------------------------------------------------------------- tracker
@@ -560,6 +634,7 @@ def phase_slam(cfg, images, depths, dev, profile=False):
     launches = {"corr_sample": corr_sample.launches,
                 "fused_qkv_attention": fused_qkv_attention.launches,
                 "vmem_attention": vmem_attention.launches}
+    appends = slam.append_count
     stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
     n_frames = FRAMES
     if profile:
@@ -570,7 +645,7 @@ def phase_slam(cfg, images, depths, dev, profile=False):
     poses, tstamps = slam.terminate()
     res = slam.get_results()
     fps = (STAGE_FROM - STEADY_FROM) / (t_end - t_steady)
-    log(f"  launches {launches}")
+    log(f"  launches {launches} over {appends} appends")
     log(f"  frames/s {fps:.3f} (frames {STEADY_FROM}-{STAGE_FROM - 1}, after "
         f"{STEADY_FROM} warm-up frames incl. init; whole run {t_end - t0:.1f} s)")
     log(f"  stage ms per call (synchronised, frames {STAGE_FROM}-{FRAMES - 1}): "
@@ -580,6 +655,9 @@ def phase_slam(cfg, images, depths, dev, profile=False):
         "weights put no track over the visibility gate; [ba] runs live edges)")
     if not (launches["corr_sample"] and launches["fused_qkv_attention"]):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if launches["fused_qkv_attention"] != SPACE_LAUNCHES * appends:
+        raise AssertionError(f"K2 launched {launches['fused_qkv_attention']} times over "
+                             f"{appends} appends, not {SPACE_LAUNCHES} per append")
     if launches["vmem_attention"]:
         raise AssertionError(f"K3 is on no path of either package, yet launched: {launches}")
     if poses.shape != (n_frames, 7) or not np.isfinite(poses).all():
@@ -725,10 +803,11 @@ def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
             f"frames, no mesh: {main_fps:.3f}")
         log(f"  stage ms per call (synchronised, frames {STAGE_FROM}-{FRAMES - 1}): "
             f"{json.dumps(stage_ms)}")
-        if not (launches["corr_sample"] and launches["fused_qkv_attention_kv"] >= appends
+        if not (launches["corr_sample"]
+                and launches["fused_qkv_attention_kv"] == SPACE_LAUNCHES * appends
                 and launches["fused_qkv_attention_kv"] == launches["fused_qkv_attention"]):
-            raise AssertionError("under a mesh every append must run K1 and K2 with a kv= "
-                                 f"source, and K2 only so: {launches}")
+            raise AssertionError(f"under a mesh every append must run K1, and K2 with a kv= "
+                                 f"source {SPACE_LAUNCHES} times and only so: {launches}")
         if launches["vmem_attention"]:
             raise AssertionError(f"K3 is on no path of either package, yet launched: {launches}")
         # zero edge weights, as in phase 4: the poses are the motion model's,
@@ -898,15 +977,24 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    max_sm = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip().splitlines()[:1]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, max SM clock "
+        f"{max_sm[0] if max_sm else 'not read'} (SFU_OPS_S assumes 132 SMs at 1980 MHz)")
 
     t0 = time.perf_counter()
     logs = cuda_build.build(["corr_sample", "fused_qkv_attention"])
     log(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (up to date)'}")
     for name, text in logs.items():
-        regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in text.splitlines()
-                       if "Used " in ln})
-        log(f"  {name}: {regs}")
+        fn = "?"
+        for ln in text.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for ")[1].strip()
+                fn = next((k for k in ("attention_bf16_wgmma_kernel", "attention_f32_kernel",
+                                       "corr") if k in fn), fn[:40])
+            elif "spill" in ln or "Used " in ln or "C75" in ln:
+                log(f"  {name} {fn}: {ln.replace('ptxas info    :', '').strip()}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -914,6 +1002,7 @@ def main() -> int:
     k2 = phase_k2(dev, gen)
     k2kv = phase_k2_kv(dev, gen)
     k3 = phase_k3(dev, gen)
+    phase_edges(dev, gen)
 
     cfg = Config()  # davis_demo defaults
     images, depths, _ = make_scene(FRAMES + 2, HT, WD, INTR)

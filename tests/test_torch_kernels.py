@@ -12,7 +12,9 @@ float32, and in bf16 two bf16 ulps of the largest output magnitude
 product (the plain one after normalising, the kernel before, relative to
 its running maximum) and round the output to bf16, so a correct kernel is
 one output rounding off the plain version, while a kernel that drops a
-key tile is many ulps off.
+key tile is many ulps off. The shapes leave the bf16 kernel's 128-query
+and 128-key tiles ragged, and the "tiles" key masks mask whole key tiles,
+under the same limits.
 """
 
 import math
@@ -110,6 +112,20 @@ def test_attention_kv_source_of_wrong_width_raises(rng):
         fused_qkv_attention(qkv, 2, 0.1, kv=torch.zeros((1, 7, 96)))
 
 
+def key_mask(kind, Nk: int, rng):
+    """None: no mask. "random": 70 % of the Nk keys live. "tiles": the same
+    with keys 0-127 (the bf16 kernel's whole first key tile) and 256-383 (a
+    whole later tile) masked; below 129 keys every key is then masked, and
+    each query averages all Nk values, as the plain version does."""
+    if kind is None:
+        return None
+    m = rng.uniform(size=Nk) > 0.3
+    if kind == "tiles":
+        m[:128] = False
+        m[256:384] = False
+    return torch.from_numpy(m)
+
+
 # ---------------------------------------------------------------- on the card
 @pytest.mark.gpu
 @pytest.mark.parametrize("L,shape", [(4, (3, 70, 24, 32)), (2, (2, 33, 9, 13))])
@@ -128,12 +144,15 @@ def test_corr_kernel_matches_plain_on_gpu(rng, cuda, L, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("mask_kind", [None, "random", "tiles"])
 @pytest.mark.parametrize("N,H", [(333, 8), (70, 2)])
-def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, masked, N, H):
+def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, mask_kind, N, H):
+    """K2 packed; N = 333 and 70 leave the bf16 kernel's 128-query and
+    128-key tiles ragged."""
     B, d = 3, 48  # the kernel's one head dim
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * d)).astype(np.float32)).to(cuda, dtype)
-    mask = torch.from_numpy(rng.uniform(size=N) > 0.3).to(cuda) if masked else None
+    mask = key_mask(mask_kind, N, rng)
+    mask = None if mask is None else mask.to(cuda)
     before = fused_qkv_attention.launches
     out = fused_qkv_attention(qkv, H, d ** -0.5, mask)
     torch.cuda.synchronize()
@@ -148,16 +167,19 @@ def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, masked, N, H):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("source", ["slim", "packed"])
-@pytest.mark.parametrize("masked", [False, True])
-def test_attention_kv_kernel_matches_plain_on_gpu(rng, cuda, dtype, source, masked):
+@pytest.mark.parametrize("mask_kind", [None, "random", "tiles"])
+@pytest.mark.parametrize("Nk", [333, 37])
+def test_attention_kv_kernel_matches_plain_on_gpu(rng, cuda, dtype, source, mask_kind, Nk):
     """K2 with a separate key/value source: queries (3, 150) against
-    Nk = 333 keys of a slim or packed source."""
-    B, N, Nk, H, d = 3, 150, 333, 8, 48
+    Nk = 333 keys (ragged key tiles) or 37 (fewer than one key tile) of a
+    slim or packed source."""
+    B, N, H, d = 3, 150, 8, 48
     C = H * d
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(cuda, dtype)
     width = (2 if source == "slim" else 3) * C
     kv = torch.from_numpy(rng.normal(size=(B, Nk, width)).astype(np.float32)).to(cuda, dtype)
-    mask = torch.from_numpy(rng.uniform(size=Nk) > 0.3).to(cuda) if masked else None
+    mask = key_mask(mask_kind, Nk, rng)
+    mask = None if mask is None else mask.to(cuda)
     before, before_kv = fused_qkv_attention.launches, fused_qkv_attention.kv_launches
     out = fused_qkv_attention(qkv, H, d ** -0.5, mask, kv=kv)
     torch.cuda.synchronize()
@@ -172,9 +194,10 @@ def test_attention_kv_kernel_matches_plain_on_gpu(rng, cuda, dtype, source, mask
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [37, 333])
+@pytest.mark.parametrize("N", [1, 37, 129, 200, 333])
 def test_vmem_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, N):
-    """K3 on (B, N, 48)."""
+    """K3 on (B, N, 48): one key, fewer than one 128-key tile, one key past
+    a tile, ragged second and third tiles."""
     q, k, v = (torch.from_numpy(rng.normal(size=(5, N, 48)).astype(np.float32)).to(cuda, dtype)
                for _ in range(3))
     before = vmem_attention.launches
@@ -188,3 +211,4 @@ def test_vmem_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, N):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     with pytest.raises(ValueError, match="48"):
         vmem_attention(q[..., :32], k[..., :32], v[..., :32], 0.1)
+

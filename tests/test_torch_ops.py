@@ -5,8 +5,11 @@ correlation against ops/corr.py 1e-4; K1's plain version against the Pallas
 kernel in interpret mode 2e-2 (both read the feature maps in bf16); K2's
 plain version against the Pallas kernel in interpret mode 2e-5, with a
 separate kv= source 1e-5; K3's plain version against the Pallas kernel in
-interpret mode 1e-5. The CUDA kernels themselves are held against their
-plain versions on the card in tests/test_torch_kernels.py.
+interpret mode 1e-5; the tile-edge cases (ragged 128-query and 128-key
+tiles, whole masked key tiles) 1e-5; a row with every key masked, where
+the Pallas kernel also averages its zero padding, 1e-5 against the
+reference scaled by padded over live keys. The CUDA kernels themselves are held
+against their plain versions on the card in tests/test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -157,3 +160,81 @@ def test_vmem_attention_plain_matches_pallas_interpret(rng):
     assert out.shape == (3, 37, 48)
     assert_close(out, ref, atol=1e-5)
     assert_close(vmem_attention_plain(t(q), t(k), t(v), 48 ** -0.5), out, atol=0)
+
+
+def _edge_mask(rng, Nk, kind):
+    """None; or 70 % of the keys live at random with keys 0-127 masked (the
+    CUDA kernel's whole first key tile) and, where they exist, keys 256-383
+    (a whole later tile). Every row keeps live keys: with all keys masked
+    the TPU kernel also averages its zero-padded keys, which the port does
+    not (test_attention_all_masked_row_vs_pallas_interpret)."""
+    if kind is None:
+        return None
+    m = rng.uniform(size=Nk) > 0.3
+    if kind == "tiles":
+        m[:128] = False
+        m[256:384] = False
+    m[-1] = True
+    return m
+
+
+@pytest.mark.parametrize("source,N,Nk,mask", [
+    (None, 200, 200, None), (None, 200, 200, "tiles"),
+    ("slim", 37, 300, None), ("slim", 37, 300, "tiles"), ("packed", 37, 300, "tiles"),
+    ("slim", 37, 50, None), ("slim", 37, 50, "random"), ("packed", 37, 50, "random")])
+def test_attention_tile_edges_plain_match_pallas_interpret(rng, source, N, Nk, mask):
+    """K2's plain version against the Pallas kernel (interpret mode) where
+    the CUDA kernel's 128-query and 128-key tiles are ragged (N and Nk not
+    multiples of 128, Nk below one key tile) and whole key tiles are
+    masked, with the packed qkv or a slim or packed kv= source."""
+    from batrack_tpu.ops.pallas_attention import fused_qkv_attention as jfused
+
+    B, H, d = 2, 2, 48
+    C = H * d
+    qkv = rng.normal(size=(B, N, 3 * C)).astype(np.float32)
+    kv = None if source is None else rng.normal(
+        size=(B, Nk, (2 if source == "slim" else 3) * C)).astype(np.float32)
+    m = _edge_mask(rng, Nk, mask)
+    ref = jfused(j(qkv), H, d ** -0.5, interpret=True, kv=None if kv is None else j(kv),
+                 key_mask=None if m is None else j(m))
+    out = fused_qkv_attention(t(qkv), H, d ** -0.5, None if m is None else t(m),
+                              kv=None if kv is None else t(kv))  # CPU tensor -> plain version
+    assert out.shape == (B, N, C)
+    assert_close(out, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("source,N,Nk", [(None, 70, 70), (None, 200, 200), ("slim", 37, 50),
+                                         ("packed", 37, 300)])
+def test_attention_all_masked_row_vs_pallas_interpret(rng, source, N, Nk):
+    """Every key masked: each query's softmax is uniform. The port averages
+    the Nk values; the Pallas kernel gives its zero-padded keys (up to Nkp,
+    the next multiple of 128) the same -1e30 logit, so it averages Nkp
+    values of which Nkp - Nk are zero. Port = reference * Nkp / Nk."""
+    from batrack_tpu.ops.pallas_attention import fused_qkv_attention as jfused
+
+    B, H, d = 2, 2, 48
+    C = H * d
+    qkv = rng.normal(size=(B, N, 3 * C)).astype(np.float32)
+    kv = None if source is None else rng.normal(
+        size=(B, Nk, (2 if source == "slim" else 3) * C)).astype(np.float32)
+    m = np.zeros(Nk, bool)
+    ref = jfused(j(qkv), H, d ** -0.5, interpret=True, kv=None if kv is None else j(kv),
+                 key_mask=j(m))
+    out = fused_qkv_attention(t(qkv), H, d ** -0.5, t(m), kv=None if kv is None else t(kv))
+    src = qkv if kv is None else kv
+    koff = src.shape[-1] - 2 * C
+    mean_v = src[..., koff + C: koff + 2 * C].mean(1, keepdims=True)  # (B, 1, C)
+    assert_close(out, np.broadcast_to(mean_v, (B, N, C)), atol=1e-5)
+    nkp = -(-Nk // 128) * 128
+    assert_close(out, np.asarray(ref) * (nkp / Nk), atol=1e-5)
+
+
+@pytest.mark.parametrize("N", [1, 150])
+def test_vmem_attention_tile_edges_plain_match_pallas_interpret(rng, N):
+    """K3's plain version against the Pallas kernel at one key and at a
+    ragged second 128-key tile."""
+    from batrack_tpu.ops.pallas_attention import vmem_attention as jvmem
+
+    q, k, v = (rng.normal(size=(2, N, 48)).astype(np.float32) for _ in range(3))
+    ref = jvmem(j(q), j(k), j(v), 48 ** -0.5, interpret=True)
+    assert_close(vmem_attention(t(q), t(k), t(v), 48 ** -0.5), ref, atol=1e-5)
