@@ -1,6 +1,7 @@
 """Sampling, embeddings, correlation and attention ops.
 
-corr_kernel (K1) and attention (K2, K3) wrap hand-written CUDA kernels; on
+corr_kernel (K1 and its int8 and mxu variants) and attention (K2, K3,
+K4) wrap hand-written CUDA kernels; on
 CPU tensors they run their plain PyTorch versions.
 """
 

@@ -15,14 +15,20 @@ softmax(q k^T * scale) v over (B, N, 48). The JAX package calls it nowhere;
 it is ported so that every Pallas kernel of the repository has a
 counterpart.
 
+K4, `flash_attention`, replaces batrack_tpu/tracker/blocks.py::
+_tpu_flash_attention, the split-head route to JAX's Pallas TPU flash
+attention that `Attention` takes under BATRACK_TPU_ATTN=flash: (B, h, N, 48)
+with an optional key mask. It folds the heads into the batch axis and
+launches the same kernel template with one head per batch row.
+
 bf16 input runs on Hopper's tensor cores (TMA-fed shared-memory ring,
 wgmma, 128 queries per block), float32 input on the float32 pipes. The bf16
 kernel reads K and V by TMA, so the key and value lanes must start 16-byte
 aligned. What bounds the kernels on the H100 and how they are laid out is in
 the source note of the .cu file. On a CUDA tensor each wrapper launches the
 kernel or raises; on a CPU tensor it runs the plain version
-(`fused_qkv_attention_plain`, `vmem_attention_plain`), which the kernel is
-held against on the card.
+(`fused_qkv_attention_plain`, `vmem_attention_plain`,
+`flash_attention_plain`), which the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -155,6 +161,27 @@ def vmem_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _softmax_pv(q, k, v, scale, None).to(q.dtype)
 
 
+def _one_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              key_mask: Optional[torch.Tensor], ndim: int, what: str) -> torch.Tensor:
+    """One launch with one head per batch row on (..., N, 48) q, k and v of
+    `ndim` dims, their leading axes folded into the batch axis: rows of 96
+    (bf16) or 192 (f32) bytes, so every base and row stays 16-byte aligned
+    for the TMA copies. Returns the output in q's shape."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if not (q.shape == k.shape == v.shape) or q.ndim != ndim or q.shape[-1] != _KERNEL_HEAD_DIM:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"(the kernel takes equal {ndim}-d shapes ending in {_KERNEL_HEAD_DIM})")
+    if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
+        raise TypeError(f"{what}: q, k and v must share dtype and device")
+    N, d = q.shape[-2:]
+    q3, k3, v3 = (_kernel_input(x.reshape(-1, N, d), what) for x in (q, k, v))
+    out = torch.empty_like(q3)
+    _launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), key_mask, out, q3.shape[0], N, N, 1,
+            d, d, scale, what)
+    return out.view(q.shape)
+
+
 def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                    block_q: int = 512) -> torch.Tensor:
     """softmax(q k^T * scale) v over (B, N, D) with D = 48 -> (B, N, D).
@@ -164,20 +191,35 @@ def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     del block_q
     if q.device.type == "cpu":
         return vmem_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"vmem_attention: unsupported device {q.device}")
-    if not (q.shape == k.shape == v.shape) or q.ndim != 3 or q.shape[-1] != _KERNEL_HEAD_DIM:
-        raise ValueError(f"vmem_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} (the kernel takes (B, N, {_KERNEL_HEAD_DIM}))")
-    if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
-        raise TypeError("vmem_attention: q, k and v must share dtype and device")
-    q, k, v = (_kernel_input(x, "vmem_attention") for x in (q, k, v))
-    B, N, D = q.shape
-    out = torch.empty_like(q)
-    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out, B, N, N, 1, D, D, scale,
-            "vmem_attention")
+    out = _one_head(q, k, v, scale, None, 3, "vmem_attention")
     vmem_attention.launches += 1
     return out
 
 
 vmem_attention.launches = 0
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                          key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K4: each (batch, head) row as K3's, with the key mask
+    as K2 applies it; output in q's dtype."""
+    B, h, N, d = q.shape
+    q, k, v = (x.reshape(B * h, x.shape[2], d) for x in (q, k, v))
+    return _softmax_pv(q, k, v, scale, key_mask).to(q.dtype).view(B, h, N, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Split-head softmax attention, (B, h, N, 48) -> (B, h, N, 48).
+
+    key_mask: optional (N,) bool; False keys are excluded from every query's
+    softmax (logit -1e30), as K2 excludes them. The JAX route assumes at
+    least one live key; with none, each query averages the N values."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, key_mask)
+    out = _one_head(q, k, v, scale, key_mask, 4, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

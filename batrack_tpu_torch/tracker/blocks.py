@@ -11,11 +11,14 @@ statistics in float32.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+from batrack_tpu_torch.ops.attention import (flash_attention, fused_qkv_attention,
+                                             fused_qkv_attention_plain)
 from batrack_tpu_torch.ops.sampling import interpolate_bilinear
 from batrack_tpu_torch.parallel.shard_kernels import fused_qkv_attention_sharded
 
@@ -112,7 +115,10 @@ class Attention(nn.Module):
 
     Sequences of at least `kernel_threshold` tokens go through the
     packed-qkv attention kernel K2 when `use_kernel` is set; shorter ones
-    (the time blocks) through its plain version, the same function. With a
+    (the time blocks) through its plain version, the same function. With
+    BATRACK_TPU_ATTN set to anything but "fused" (read at each call, as
+    batrack_tpu's Attention reads it), such sequences take the split-head
+    route instead: heads split, K4 (flash_attention), heads merged. With a
     `mesh` the sequence axis is sharded over the ranks (the space blocks of
     the multi-device path): x holds this rank's tokens and the keys and
     values of all ranks are gathered (fused_qkv_attention_sharded)."""
@@ -131,11 +137,18 @@ class Attention(nn.Module):
         """key_mask: optional (N,) bool, of this rank's tokens under a mesh;
         False keys are excluded from the softmax (the reference slices
         inactive tracks out instead)."""
-        N, C = x.shape[1], x.shape[2]
+        B, N, C = x.shape
         qkv = self.qkv(x)
-        scale = (C // self.num_heads) ** -0.5
+        head = C // self.num_heads
+        scale = head ** -0.5
         n_all = N if self.mesh is None else N * self.mesh.size
         if self.use_kernel and n_all >= self.kernel_threshold:
+            # under a mesh batrack_tpu's split-head route is its dense
+            # attention, the same function, so the sharded K2 route stays
+            if self.mesh is None and os.environ.get("BATRACK_TPU_ATTN", "fused") != "fused":
+                q, k, v = qkv.reshape(B, N, 3, self.num_heads, head).permute(2, 0, 3, 1, 4)
+                out = flash_attention(q, k, v, scale, key_mask)
+                return self.proj(out.transpose(1, 2).reshape(B, N, C))
             attend = fused_qkv_attention
         else:
             attend = fused_qkv_attention_plain

@@ -8,11 +8,12 @@ Phases, each of which fails the run when it fails:
 1. build the hand-written CUDA kernels from batrack_tpu_torch/csrc/ (one
    nvcc per source, all started together);
 2. K1 (correlation windows) and K2 (packed-qkv attention) at the davis_demo
-   shapes of the sparse-SLAM path, each held against its plain PyTorch
-   version on the same inputs with TF32 off (K1 on its bf16 maps, K2 in
-   bf16 and in float32), and timed beside its plain version, a PyTorch
-   library call where one exists (K2: scaled_dot_product_attention on the
-   split-head layout) and the least time the card could take (`bound_ms`);
+   shapes of the sparse-SLAM path (and the other kernels, below), each
+   held against its plain PyTorch version on the same inputs with TF32 off
+   (K1 on its bf16 maps, K2 in bf16 and in float32), and timed beside its
+   plain version, a PyTorch library call where one exists (K2:
+   scaled_dot_product_attention on the split-head layout) and the least
+   time the card could take (`bound_ms`);
 3. full-width MDTracker forwards, kernels against the plain versions, in
    float32 and in bf16, each beside a witness: the plain versions against
    themselves with their outputs jittered by one rounding of their dtype;
@@ -47,14 +48,23 @@ update (README).
 
 Phase 2 also holds K2 with a kv= source (queries of all 2400 tracks, the
 shape phase 6 gives it at one rank, and of a quarter of them, one rank of
-a 4-way track shard) and K3 (vmem_attention, on no path of the JAX
-package) against their plain versions, and times them. K3's launch
-counter is read around phases 4 and 6 and must stay 0. Last in phase 2,
-K2 packed, K2 kv= (slim and packed sources) and K3 are held against their
-plain versions at the edges of the bf16 kernel's tiling: query and key
-counts that leave its 128-query and 128-key tiles ragged, fewer keys than
-one tile, and key masks that mask whole key tiles. Phases 4 and 6 check
-24 attention launches per append (6 space blocks x 4 iterations).
+a 4-way track shard), K3 (vmem_attention, on no path of the JAX package)
+and K4 (flash_attention: split-head attention on the same kernel, the
+route Attention takes under BATRACK_TPU_ATTN=flash) against their plain
+versions, and times them beside scaled_dot_product_attention. It holds
+K1's two options, the tensor-core contraction (contract="mxu") and int8
+maps (fmap_dtype="int8"), at K1's shapes against their plain versions and
+times them; then it drives the path that selects them,
+scripts/torch_corr_ab.py, with their launch counters set to 0 just before
+and read just after. Last in phase 2, K2 packed, K2 kv= (slim and packed
+sources), K3 and K4 are held against their plain versions at the edges of
+the bf16 kernel's tiling: query and key counts that leave its 128-query
+and 128-key tiles ragged, fewer keys than one tile, and key masks that
+mask whole key tiles. Phase 3 adds one bf16 forward under
+BATRACK_TPU_ATTN=flash, held against the fused route's forward at the bf16
+limits: K4 must launch as often as K2 does there, and K2 not at all.
+Phases 4 and 6 check 24 attention launches per append (6 space blocks x 4
+iterations), and that K3, K4 and K1's options launch 0 times.
 
 It then prints one {"kernels": [...]} line, the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
@@ -72,6 +82,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -120,9 +131,10 @@ TOL = {"k1": 1e-4, "k2_f32": 1e-4,
 
 
 def source_digest() -> str:
-    """sha256 over this script and every .py/.cu file of batrack_tpu_torch/."""
+    """sha256 over this script, scripts/torch_corr_ab.py (which phase 2
+    runs) and every .py/.cu file of batrack_tpu_torch/."""
     root = Path(__file__).resolve().parent
-    files = [root / "chip_smoke.py"] + sorted(
+    files = [root / "chip_smoke.py", root / "scripts" / "torch_corr_ab.py"] + sorted(
         p for p in (root / "batrack_tpu_torch").rglob("*") if p.suffix in (".py", ".cu"))
     h = hashlib.sha256()
     for p in files:
@@ -203,6 +215,11 @@ def plain_kernels(jitter_gen=None):
 
 # ---------------------------------------------------------------- K1
 def phase_k1(dev, gen):
+    """K1 on bf16 maps with the float32 contraction (the tracker's), then
+    its two options, the tensor-core contraction and int8 maps, at the
+    davis_demo shapes against their plain versions (1e-4: exact products,
+    sums in another order), each timed beside its plain version and its
+    bound. No single PyTorch call computes the windows: no library time."""
     from batrack_tpu_torch.ops.corr import build_pyramid
     from batrack_tpu_torch.ops.corr_kernel import corr_sample, corr_sample_plain, pack_pyramid
     from batrack_tpu_torch.utils.config import full_fp32
@@ -214,43 +231,78 @@ def phase_k1(dev, gen):
     # track positions over the map plus a margin: some windows cross the edge
     u = torch.rand((S, NQ, 2), generator=gen, device=dev)
     coords = torch.stack([u[..., 0] * (W4 + 8) - 4, u[..., 1] * (H4 + 8) - 4], -1)
-
-    # the maps are stored in bf16 whatever the tracker's dtype (pack_pyramid),
-    # and targets, coords and output are float32, so K1 has one variant
-    with full_fp32():
-        pyr = pack_pyramid(build_pyramid(fm, LEVELS))
-        out = corr_sample(pyr, targets, coords, RADIUS)
-        torch.cuda.synchronize()
-        assert out.shape == (NQ, S, LEVELS * (2 * RADIUS + 1) ** 2)
-        err = max_err(out, corr_sample_plain(pyr, targets, coords, RADIUS))
-        check("K1 vs plain, bf16 maps, float32 sums", err, TOL["k1"])
-        ms = cuda_ms(lambda: corr_sample(pyr, targets, coords, RADIUS), reps=50)
-        plain_ms = cuda_ms(lambda: corr_sample_plain(pyr, targets, coords, RADIUS), reps=5)
-
-    # bound: every input read once, the output written once; operations are
-    # the float32 multiply-adds of the taps that lie in the map (out-of-map
-    # taps are zero and skipped) plus the 2x2 blend and scale per output
-    D = 2 * RADIUS + 2
-    off = torch.arange(D, device=dev, dtype=torch.float32)
+    pyramid = build_pyramid(fm, LEVELS)
+    # the work every variant must do: the (2r+2)^2 integer taps of each
+    # window that lie in its level's map (out-of-map taps are zero: the vpu
+    # kernels skip them, the mxu kernel multiplies zero rows) and the
+    # (2r+1)^2 outputs of each window
+    off = torch.arange(2 * RADIUS + 2, device=dev, dtype=torch.float32)
     taps = 0
-    for lvl, (h, w) in enumerate(pyr.shapes):
+    for lvl, fl in enumerate(pyramid):
         c = coords / 2.0 ** lvl
         xs = torch.floor(c[..., 0:1]) - RADIUS + off
         ys = torch.floor(c[..., 1:2]) - RADIUS + off
-        nx = ((xs >= 0) & (xs < w)).sum(-1)
-        ny = ((ys >= 0) & (ys < h)).sum(-1)
+        nx = ((xs >= 0) & (xs < fl.shape[3])).sum(-1)
+        ny = ((ys >= 0) & (ys < fl.shape[2])).sum(-1)
         taps += int((nx * ny).sum().item())
     n_out = NQ * S * LEVELS * (2 * RADIUS + 1) ** 2
-    flops = 2 * C * taps + 8 * n_out
-    nbytes = pyr.flat.numel() * 2 + targets.numel() * 4 + coords.numel() * 4 + n_out * 4
-    bound_ms, bound_by = bound(nbytes, [flops / F32_FLOPS])
-    log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
-        f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32)")
-    return {"name": "corr_sample", "route": "cuda",
-            "source": "batrack_tpu_torch/csrc/corr_sample.cu",
-            "replaces": "batrack_tpu/ops/pallas_corr.py:52",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    entries = []
+    for fd, ct, name, line in (("bf16", "vpu", "corr_sample", 52),
+                               ("bf16", "mxu", "corr_sample_mxu", 110),
+                               ("int8", "vpu", "corr_sample_int8", 72)):
+        with full_fp32():
+            pyr = pack_pyramid(pyramid, fd)
+            out = corr_sample(pyr, targets, coords, RADIUS, contract=ct)
+            torch.cuda.synchronize()
+            assert out.shape == (NQ, S, LEVELS * (2 * RADIUS + 1) ** 2)
+            err = max_err(out, corr_sample_plain(pyr, targets, coords, RADIUS, contract=ct))
+            check(f"K1 vs plain, {fd} maps, {ct} contraction", err, TOL["k1"])
+            ms = cuda_ms(lambda: corr_sample(pyr, targets, coords, RADIUS, contract=ct), reps=50)
+            plain_ms = cuda_ms(lambda: corr_sample_plain(pyr, targets, coords, RADIUS,
+                                                         contract=ct), reps=5)
+        # bound: every input read once (1 byte per int8 map element, and the
+        # (L,) scales), the output written once; operations are the window
+        # products of the in-map taps, on the bf16 tensor cores for mxu, and
+        # the 2x2 blend and scale per output
+        nbytes = (pyr.flat.numel() * pyr.flat.element_size() + targets.numel() * 4
+                  + coords.numel() * 4 + n_out * 4 + (LEVELS * 4 if fd == "int8" else 0))
+        if ct == "mxu":
+            ops = [2 * C * taps / BF16_FLOPS, 8 * n_out / F32_FLOPS]
+        else:
+            ops = [(2 * C * taps + 8 * n_out) / F32_FLOPS]
+        bound_ms, bound_by = bound(nbytes, ops)
+        log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
+            f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {2 * C * taps / 1e9:.2f} "
+            f"GFLOP {'bf16' if ct == 'mxu' else 'f32'})")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "batrack_tpu_torch/csrc/corr_sample.cu",
+                        "replaces": f"batrack_tpu/ops/pallas_corr.py:{line}",
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return entries
+
+
+def phase_corr_ab(dev):
+    """The path that selects K1's options: scripts/torch_corr_ab.py (parity
+    of each variant against its plain version, then its times), with the
+    variants' launch counters set to 0 just before and read just after."""
+    import importlib.util
+
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_corr_ab", Path(__file__).resolve().parent / "scripts" / "torch_corr_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    log("[corr A/B] scripts/torch_corr_ab.py, 5 reps")
+    corr_sample.mxu_launches = corr_sample.int8_launches = 0
+    ab.run(dev, reps=5, log=lambda m: log(f"  {m}"))
+    launches = {"corr_sample_mxu": corr_sample.mxu_launches,
+                "corr_sample_int8": corr_sample.int8_launches}
+    log(f"  launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"the A/B path did not launch every K1 variant: {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------- K2
@@ -412,6 +464,54 @@ def phase_k3(dev, gen):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+# ---------------------------------------------------------------- K4
+def split_heads(qkv, heads):
+    """q, k, v as (B, heads, N, d) views of the packed (B, N, 3C) qkv: what
+    the tracker's split-head route hands K4."""
+    B, N, C3 = qkv.shape
+    return qkv.view(B, N, 3, heads, C3 // (3 * heads)).permute(2, 0, 3, 1, 4)
+
+
+def phase_k4(dev, gen):
+    import torch.nn.functional as F
+
+    from batrack_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    d = HIDDEN // HEADS
+    scale = d ** -0.5
+    log(f"[K4] flash_attention: q, k, v ({S}, {HEADS}, {NQ}, {d}), split from a packed qkv")
+    qkv32 = torch.randn((S, NQ, 3 * HIDDEN), generator=gen, device=dev)
+    mask = torch.rand((NQ,), generator=gen, device=dev) > 0.2
+    errs = {}
+    with full_fp32():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = split_heads(qkv32.to(dt), HEADS)
+            for m in (None, mask):
+                out = flash_attention(q, k, v, scale, m)
+                torch.cuda.synchronize()
+                assert out.shape == (S, HEADS, NQ, d) and out.dtype == dt
+                ref = flash_attention_plain(q, k, v, scale, m)
+                errs[(dt, m is None)] = max_err(out, ref)
+                check(f"K4 vs plain, {str(dt)[6:]}, key mask {'no' if m is None else 'yes'}",
+                      errs[(dt, m is None)],
+                      bf16_tol(ref) if dt == torch.bfloat16 else TOL["k2_f32"])
+    # the tracker's route: bf16, no key mask (one window)
+    q, k, v = split_heads(qkv32.to(torch.bfloat16), HEADS)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, scale), reps=30)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, scale), reps=3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=30)
+    nbytes = 4 * S * NQ * HIDDEN * 2  # q, k, v read, the output written
+    bound_ms, bound_by, what = attention_bound(S * HEADS * NQ * NQ, d, nbytes)
+    log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  "
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {what})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu",
+            "replaces": "batrack_tpu/tracker/blocks.py:148",
+            "max_abs_err": errs[(torch.bfloat16, True)], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------- tiling edges
 def tile_mask(nk, dev, gen):
     """(nk,) bool: 70 % of the keys live at random, with keys 0-127 (the
@@ -425,16 +525,17 @@ def tile_mask(nk, dev, gen):
 
 
 def phase_edges(dev, gen):
-    """K2 packed, K2 kv= and K3 against their plain versions where the bf16
-    kernel's tiles are ragged or whole key tiles are masked, in bf16 (two
-    ulps) and float32 (TOL["k2_f32"]). Returns the largest bf16 error."""
-    from batrack_tpu_torch.ops.attention import (fused_qkv_attention, fused_qkv_attention_plain,
+    """K2 packed, K2 kv=, K3 and K4 against their plain versions where the
+    bf16 kernel's tiles are ragged or whole key tiles are masked, in bf16
+    (two ulps) and float32 (TOL["k2_f32"]). Returns the largest bf16 error."""
+    from batrack_tpu_torch.ops.attention import (flash_attention, flash_attention_plain,
+                                                 fused_qkv_attention, fused_qkv_attention_plain,
                                                  vmem_attention, vmem_attention_plain)
     from batrack_tpu_torch.utils.config import full_fp32
 
     d = HIDDEN // HEADS
     scale = d ** -0.5
-    log("[edges] K2 and K3 at ragged 128-query/128-key tiles and masked whole key tiles")
+    log("[edges] K2, K3 and K4 at ragged 128-query/128-key tiles and masked whole key tiles")
     worst = 0.0
     # (source, queries, keys, heads): packed N=333 and 70, kv= 150 queries
     # against 333 keys and against 37 (fewer than one key tile)
@@ -459,6 +560,18 @@ def phase_edges(dev, gen):
                     worst = max(worst, err) if bf16 else worst
                     check(f"K2 {source or 'packed qkv'} source, {n} queries x {nk} keys, "
                           f"{heads} heads, {str(dt)[6:]}, key mask "
+                          f"{'no' if m is None else 'whole tiles'}",
+                          err, bf16_tol(ref) if bf16 else TOL["k2_f32"])
+                    if source is not None:
+                        continue
+                    # K4 on the same heads, split (the tracker's flash route)
+                    q, k, v = split_heads(qkv, heads)
+                    out = flash_attention(q, k, v, scale, m)
+                    torch.cuda.synchronize()
+                    ref = flash_attention_plain(q, k, v, scale, m)
+                    err = max_err(out, ref)
+                    worst = max(worst, err) if bf16 else worst
+                    check(f"K4, ({q.shape[0]}, {heads}, {n}, {d}), {str(dt)[6:]}, key mask "
                           f"{'no' if m is None else 'whole tiles'}",
                           err, bf16_tol(ref) if bf16 else TOL["k2_f32"])
         for n in (37, 200):
@@ -523,7 +636,54 @@ def tracker_diffs(ad, tin, gen):
     return diffs(out), diffs(jit)
 
 
+@contextlib.contextmanager
+def attention_route(value):
+    """BATRACK_TPU_ATTN set to `value` for the block (Attention reads it at
+    each call), then restored."""
+    saved = os.environ.get("BATRACK_TPU_ATTN")
+    os.environ["BATRACK_TPU_ATTN"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["BATRACK_TPU_ATTN"]
+        else:
+            os.environ["BATRACK_TPU_ATTN"] = saved
+
+
+def flash_route_check(ad, tin):
+    """One forward of `tin` under BATRACK_TPU_ATTN=flash (space attention
+    split into heads, K4) against the fused route's forward (K2), at phase
+    3's bf16 limits. K4 must launch as often as K2 does on the fused
+    forward, and K2 not at all. Returns K4's launches."""
+    from batrack_tpu_torch.ops.attention import flash_attention, fused_qkv_attention
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    with full_fp32():
+        fused_qkv_attention.launches = 0
+        ref, _ = ad.forward(tin.window_rgbd, tin.queries)
+        torch.cuda.synchronize()
+        fused = fused_qkv_attention.launches
+        fused_qkv_attention.launches = flash_attention.launches = 0
+        with attention_route("flash"):
+            out, _ = ad.forward(tin.window_rgbd, tin.queries)
+        torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "fused_qkv_attention": fused_qkv_attention.launches}
+    diff = {k: max_err(getattr(out, k), getattr(ref, k)) for k in ("tracks", "vis", "dynamic")}
+    log(f"  bfloat16, BATRACK_TPU_ATTN=flash vs fused route {json.dumps(diff)}; launches "
+        f"{launches}, K2 on the fused forward {fused}")
+    for k, v in diff.items():
+        check(f"{k}, flash route vs fused route", v, TOL["tracker_bf16"][k])
+    if not (fused and launches["flash_attention"] == fused
+            and launches["fused_qkv_attention"] == 0):
+        raise AssertionError(f"the flash route must launch K4 where the fused one launches K2 "
+                             f"({fused} times) and K2 never: {launches}")
+    return launches["flash_attention"]
+
+
 def phase_tracker(cfg, images, depths, dev, gen):
+    """Returns phase 3's input and K4's launches on the flash-route forward."""
     from batrack_tpu_torch.tracker import MDTrackerAdapter
 
     log("[tracker] full-width MDTracker forwards, kernels vs plain versions (TF32 off)")
@@ -543,8 +703,10 @@ def phase_tracker(cfg, images, depths, dev, gen):
             tol = TOL["tracker_f32" if dtype == "float32" else "tracker_bf16"]
             for k, v in kern.items():
                 check(f"{k}, {dtype}, kernels vs plain", v, tol[k])
+        if dtype == "bfloat16":
+            flash_launches = flash_route_check(ad, tin)
         del ad
-    return tin
+    return tin, flash_launches
 
 
 def mesh_tracker_check(cfg, tin, mesh, gen):
@@ -598,8 +760,33 @@ def profile_frames(slam, images, depths, frames):
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:110]}")
 
 
+OFF_PATH = ("vmem_attention", "flash_attention", "corr_sample_mxu", "corr_sample_int8")
+
+
+def zero_off_path():
+    """Set the counters of the kernels no main path runs to 0: K3, K4 and
+    K1's mxu and int8 variants."""
+    from batrack_tpu_torch.ops.attention import flash_attention, vmem_attention
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+
+    vmem_attention.launches = flash_attention.launches = 0
+    corr_sample.mxu_launches = corr_sample.int8_launches = 0
+
+
+def off_path_launches():
+    """The counters zero_off_path set; each must still read 0."""
+    from batrack_tpu_torch.ops.attention import flash_attention, vmem_attention
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+
+    launches = dict(zip(OFF_PATH, (vmem_attention.launches, flash_attention.launches,
+                                   corr_sample.mxu_launches, corr_sample.int8_launches)))
+    if any(launches.values()):
+        raise AssertionError(f"K3, K4 or a K1 option launched on a main path: {launches}")
+    return launches
+
+
 def phase_slam(cfg, images, depths, dev, profile=False):
-    from batrack_tpu_torch.ops.attention import fused_qkv_attention, vmem_attention
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
     from batrack_tpu_torch.slam import BATrack
     from batrack_tpu_torch.tracker import MDTrackerAdapter
@@ -617,7 +804,7 @@ def phase_slam(cfg, images, depths, dev, profile=False):
 
     corr_sample.launches = 0
     fused_qkv_attention.launches = 0
-    vmem_attention.launches = 0
+    zero_off_path()
     t0 = time.perf_counter()
     for t in range(STAGE_FROM):
         if t == STEADY_FROM:
@@ -632,8 +819,7 @@ def phase_slam(cfg, images, depths, dev, profile=False):
         slam(t, images[t], depths[t], INTR)
     torch.cuda.synchronize()
     launches = {"corr_sample": corr_sample.launches,
-                "fused_qkv_attention": fused_qkv_attention.launches,
-                "vmem_attention": vmem_attention.launches}
+                "fused_qkv_attention": fused_qkv_attention.launches, **off_path_launches()}
     appends = slam.append_count
     stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
     n_frames = FRAMES
@@ -658,8 +844,6 @@ def phase_slam(cfg, images, depths, dev, profile=False):
     if launches["fused_qkv_attention"] != SPACE_LAUNCHES * appends:
         raise AssertionError(f"K2 launched {launches['fused_qkv_attention']} times over "
                              f"{appends} appends, not {SPACE_LAUNCHES} per append")
-    if launches["vmem_attention"]:
-        raise AssertionError(f"K3 is on no path of either package, yet launched: {launches}")
     if poses.shape != (n_frames, 7) or not np.isfinite(poses).all():
         raise AssertionError(f"trajectory {poses.shape} not finite")
     if not np.allclose(np.linalg.norm(poses[:, 3:], axis=1), 1.0, atol=1e-4):
@@ -759,7 +943,7 @@ def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
     update."""
     import torch.distributed as dist
 
-    from batrack_tpu_torch.ops.attention import fused_qkv_attention, vmem_attention
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
     from batrack_tpu_torch.parallel import get_mesh, sharded_slot_slam_update
     from batrack_tpu_torch.slam import BATrack
@@ -779,7 +963,7 @@ def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
         corr_sample.launches = 0
         fused_qkv_attention.launches = 0
         fused_qkv_attention.kv_launches = 0
-        vmem_attention.launches = 0
+        zero_off_path()
         for t in range(STAGE_FROM):
             if t == STEADY_FROM:
                 torch.cuda.synchronize()
@@ -795,7 +979,7 @@ def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
         launches = {"corr_sample": corr_sample.launches,
                     "fused_qkv_attention": fused_qkv_attention.launches,
                     "fused_qkv_attention_kv": fused_qkv_attention.kv_launches,
-                    "vmem_attention": vmem_attention.launches}
+                    **off_path_launches()}
         appends = slam.append_count
         stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
         log(f"  launches {launches} over {appends} appends")
@@ -808,8 +992,6 @@ def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
                 and launches["fused_qkv_attention_kv"] == launches["fused_qkv_attention"]):
             raise AssertionError(f"under a mesh every append must run K1, and K2 with a kv= "
                                  f"source {SPACE_LAUNCHES} times and only so: {launches}")
-        if launches["vmem_attention"]:
-            raise AssertionError(f"K3 is on no path of either package, yet launched: {launches}")
         # zero edge weights, as in phase 4: the poses are the motion model's,
         # so this holds the mesh path's ring and BA plumbing, not the tracker
         wit = ba["witness"]["poses"]
@@ -971,7 +1153,8 @@ def main() -> int:
     from batrack_tpu_torch.utils.config import Config
     from batrack_tpu_torch.utils.synth import make_scene
 
-    log(f"source sha256 {source_digest()} (chip_smoke.py + batrack_tpu_torch/ .py .cu)")
+    log(f"source sha256 {source_digest()} (chip_smoke.py, scripts/torch_corr_ab.py, "
+        "batrack_tpu_torch/ .py .cu)")
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -992,21 +1175,24 @@ def main() -> int:
             if "Function properties for" in ln:
                 fn = ln.split("Function properties for ")[1].strip()
                 fn = next((k for k in ("attention_bf16_wgmma_kernel", "attention_f32_kernel",
+                                       "corr_sample_mxu_kernel", "corr_sample_int8_kernel",
                                        "corr") if k in fn), fn[:40])
             elif "spill" in ln or "Used " in ln or "C75" in ln:
                 log(f"  {name} {fn}: {ln.replace('ptxas info    :', '').strip()}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    k1 = phase_k1(dev, gen)
+    k1, k1_mxu, k1_int8 = phase_k1(dev, gen)
+    ab_launches = phase_corr_ab(dev)
     k2 = phase_k2(dev, gen)
     k2kv = phase_k2_kv(dev, gen)
     k3 = phase_k3(dev, gen)
+    k4 = phase_k4(dev, gen)
     phase_edges(dev, gen)
 
     cfg = Config()  # davis_demo defaults
     images, depths, _ = make_scene(FRAMES + 2, HT, WD, INTR)
-    tin = phase_tracker(cfg, images, depths, dev, gen)
+    tin, flash_launches = phase_tracker(cfg, images, depths, dev, gen)
     launches, fps, poses_at_stage = phase_slam(cfg, images, depths, dev, args.profile)
     ba = phase_ba(cfg, images, depths, dev)
     mesh_launches = phase_mesh(cfg, images, depths, dev, fps, poses_at_stage, ba, tin, gen)
@@ -1014,9 +1200,14 @@ def main() -> int:
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]
     k2kv["launches"] = mesh_launches["fused_qkv_attention_kv"]
-    # K3 is on no path: phases 4 and 6 each read 0 (checked there)
+    # K3 is on no path: phases 4 and 6 each read 0 (checked there), as do
+    # K4 and K1's options, whose launches are those of their own paths: the
+    # A/B script (phase 2) and the flash-route tracker forward (phase 3)
     k3["launches"] = launches["vmem_attention"] + mesh_launches["vmem_attention"]
-    print(json.dumps({"kernels": [k1, k2, k2kv, k3]}))
+    k1_mxu["launches"] = ab_launches["corr_sample_mxu"]
+    k1_int8["launches"] = ab_launches["corr_sample_int8"]
+    k4["launches"] = flash_launches
+    print(json.dumps({"kernels": [k1, k1_mxu, k1_int8, k2, k2kv, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,9 @@ its running maximum) and round the output to bf16, so a correct kernel is
 one output rounding off the plain version, while a kernel that drops a
 key tile is many ulps off. The shapes leave the bf16 kernel's 128-query
 and 128-key tiles ragged, and the "tiles" key masks mask whole key tiles,
-under the same limits.
+under the same limits. K1's int8 and mxu variants are held to 1e-4 like
+K1 (exact products, sums in another order), K4 (split-head attention on
+the same kernel) to K2's limits.
 """
 
 import math
@@ -25,6 +27,8 @@ import torch
 
 from batrack_tpu_torch.ops import corr
 from batrack_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_plain,
     fused_qkv_attention,
     fused_qkv_attention_plain,
     vmem_attention,
@@ -104,6 +108,46 @@ def test_attention_plain_kv_source_is_the_packed_layout(rng):
     q, k, v = (qkv[..., :d], qkv[..., H * d: H * d + d], qkv[..., 2 * H * d: 2 * H * d + d])
     one = torch.cat([q, k, v], -1)
     assert torch.equal(vmem_attention_plain(q, k, v, 0.3), fused_qkv_attention_plain(one, 1, 0.3))
+
+
+def test_pack_pyramid_int8_levels_and_scales(rng):
+    """int8 levels are within half a quantisation step of the maps, with
+    one float32 scale per level, amax / 127."""
+    fm, _, _ = _k1_inputs(rng, S=2, C=128, N=1, H=16, W=24)
+    pyramid = corr.build_pyramid(fm, 3)
+    pyr = pack_pyramid(pyramid, "int8")
+    assert pyr.flat.dtype == torch.int8 and pyr.scales.shape == (3,)
+    assert pyr.scales.dtype == torch.float32
+    for lvl, p in enumerate(pyramid):
+        scale = pyr.scales[lvl]
+        torch.testing.assert_close(scale, p.abs().max() / 127.0, atol=0, rtol=1e-6)
+        err = (pyr.level(lvl).float() * scale - p.permute(0, 2, 3, 1)).abs().max()
+        assert err <= 0.5 * scale * (1 + 1e-5)
+
+
+def test_corr_sample_plain_mxu_is_vpu_on_bf16_targets(rng):
+    """The plain mxu contraction is the plain vpu one on targets rounded to
+    bf16, exactly."""
+    fm, tg, xy = _k1_inputs(rng, S=2, C=128, N=9, H=16, W=24)
+    pyr = pack_pyramid(corr.build_pyramid(fm, 3))
+    torch.testing.assert_close(corr_sample(pyr, tg, xy, 3, contract="mxu"),
+                               corr_sample_plain(pyr, tg.to(torch.bfloat16).float(), xy, 3),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_plain_is_the_packed_layout(rng, masked):
+    """K4's plain version on split heads (B, h, N, d) gives K2's plain
+    version on the packed qkv of the same heads, exactly."""
+    B, N, H, d = 2, 19, 3, 48
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * d)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=N) > 0.3) if masked else None
+    q, k, v = qkv.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    out = flash_attention(q, k, v, 0.3, mask)  # CPU tensor -> plain version
+    assert out.shape == (B, H, N, d)
+    ref = fused_qkv_attention_plain(qkv, H, 0.3, mask)
+    assert torch.equal(out.transpose(1, 2).reshape(B, N, H * d), ref)
+    assert torch.equal(flash_attention_plain(q, k, v, 0.3, mask), out)
 
 
 def test_attention_kv_source_of_wrong_width_raises(rng):
@@ -212,3 +256,53 @@ def test_vmem_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, N):
     with pytest.raises(ValueError, match="48"):
         vmem_attention(q[..., :32], k[..., :32], v[..., :32], 0.1)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmap_dtype,contract", [("bf16", "mxu"), ("int8", "vpu")])
+@pytest.mark.parametrize("L,shape,margin", [(4, (3, 70, 24, 32), 8.0), (2, (2, 33, 9, 13), 8.0),
+                                            (3, (2, 41, 16, 24), 60.0)])
+def test_corr_kernel_options_match_plain_on_gpu(rng, cuda, fmap_dtype, contract, L, shape,
+                                                margin):
+    """K1's mxu and int8 variants == their plain versions (1e-4); the last
+    shape puts most windows far outside the map, partly or wholly."""
+    S, N, H, W = shape
+    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=128, N=N, H=H, W=W, margin=margin))
+    pyr = pack_pyramid(corr.build_pyramid(fm, L), fmap_dtype)
+    counters = ("launches", "mxu_launches", "int8_launches")
+    before = {c: getattr(corr_sample, c) for c in counters}
+    out = corr_sample(pyr, tg, xy, 3, contract=contract)
+    torch.cuda.synchronize()
+    mine = "int8_launches" if fmap_dtype == "int8" else "mxu_launches"
+    assert {c: getattr(corr_sample, c) - before[c] for c in counters} == {
+        c: int(c == mine) for c in counters}
+    with full_fp32():
+        ref = corr_sample_plain(pyr, tg, xy, 3, contract=contract)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    if fmap_dtype == "int8":
+        with pytest.raises(ValueError, match="int8"):
+            corr_sample(pyr, tg, xy, 3, contract="mxu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", [None, "random", "tiles"])
+@pytest.mark.parametrize("N,H", [(333, 8), (70, 2)])
+def test_flash_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, mask_kind, N, H):
+    """K4 on split heads (3, H, N, 48) taken from a packed qkv, as the
+    tracker's split-head route gives them; N = 333 and 70 leave the bf16
+    kernel's 128-query and 128-key tiles ragged."""
+    B, d = 3, 48
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * d)).astype(np.float32)).to(cuda, dtype)
+    q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    mask = key_mask(mask_kind, N, rng)
+    mask = None if mask is None else mask.to(cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, d ** -0.5, mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, H, N, d)
+    with full_fp32():
+        ref = flash_attention_plain(q, k, v, d ** -0.5, mask)
+    tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)

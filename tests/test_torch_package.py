@@ -48,13 +48,18 @@ def test_import_leaves_jax_and_batrack_tpu_out():
 
 
 def test_sources_name_no_jax_flax_or_batrack_tpu():
-    """No source imports jax or flax, or names a module of batrack_tpu
-    (`batrack_tpu.` never matches `batrack_tpu_torch.`); file paths such as
+    """No source of the package, chip_smoke.py or scripts/torch_*.py imports
+    jax or flax, or names a module of batrack_tpu (`batrack_tpu.` never
+    matches `batrack_tpu_torch.`); file paths such as
     batrack_tpu/ops/pallas_corr.py in source notes are allowed."""
     pattern = re.compile(r"import jax|from jax|import flax|from flax|batrack_tpu\."
                          r"|import_module\(\s*[\"'](jax|flax|batrack_tpu)\b")
-    offenders = [f"{f.relative_to(PKG)}:{i}: {line.strip()}"
-                 for f in sorted(PKG.rglob("*")) if f.suffix in (".py", ".cu", ".cuh", ".h")
+    root = PKG.parent
+    files = ([f for f in sorted(PKG.rglob("*")) if f.suffix in (".py", ".cu", ".cuh", ".h")]
+             + [root / "chip_smoke.py"] + sorted((root / "scripts").glob("torch_*.py")))
+    assert root / "scripts" / "torch_corr_ab.py" in files
+    offenders = [f"{f.relative_to(root)}:{i}: {line.strip()}"
+                 for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
                  if pattern.search(line)]
     assert not offenders, "\n".join(offenders)
@@ -125,6 +130,23 @@ def test_kernel_wrappers_refuse_other_devices():
     assert attention.fused_qkv_attention.kv_launches == 0
     assert attention.vmem_attention.launches == 0
     assert corr_kernel.corr_sample.launches == 0
+
+
+def test_kernel_options_refuse_other_devices():
+    """K1's mxu and int8 variants and K4 raise on a device that is neither
+    the CPU nor CUDA, and count no launch."""
+    pyramid = [torch.zeros((2, 128, 8, 8), device="meta")]
+    targets, coords = torch.zeros((3, 2, 128), device="meta"), torch.zeros((2, 3, 2), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        corr_kernel.corr_sample(corr_kernel.pack_pyramid(pyramid), targets, coords, 1,
+                                contract="mxu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        corr_kernel.corr_sample(corr_kernel.pack_pyramid(pyramid, "int8"), targets, coords, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.flash_attention(*(torch.zeros((2, 2, 8, 48), device="meta") for _ in range(3)),
+                                  0.1)
+    assert corr_kernel.corr_sample.mxu_launches == corr_kernel.corr_sample.int8_launches == 0
+    assert attention.flash_attention.launches == 0
 
 
 def test_config_copy_matches_jax_config():

@@ -70,6 +70,37 @@ def test_attn_block_matches_jax(rng, masked, use_kernel):
 
 
 @pytest.mark.parametrize("masked", [False, True])
+def test_attention_flash_route_matches_jax(rng, monkeypatch, masked):
+    """Attention under BATRACK_TPU_ATTN=flash: the port splits the heads and
+    calls K4 (flash_attention, its plain version on the CPU); batrack_tpu's
+    Attention(use_flash=True) takes its split-head route, which off the TPU
+    is its dense softmax (tolerance 1e-5, float32)."""
+    from batrack_tpu_torch.tracker import blocks
+
+    monkeypatch.setenv("BATRACK_TPU_ATTN", "flash")
+    calls, flash = [], blocks.flash_attention
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return flash(*args)  # CPU tensors -> plain version
+
+    monkeypatch.setattr(blocks, "flash_attention", counted)
+    torch.manual_seed(3)
+    attn = blocks.Attention(96, 2, use_kernel=True, kernel_threshold=1).eval()
+    sd = {k: v.numpy() for k, v in attn.state_dict().items()}
+    params = {name: {"kernel": jnp.asarray(sd[f"{name}.weight"].T),
+                     "bias": jnp.asarray(sd[f"{name}.bias"])} for name in ("qkv", "proj")}
+    x = rng.normal(size=(3, 37, 96)).astype(np.float32)
+    mask = rng.uniform(size=37) > 0.4 if masked else None
+    with torch.no_grad():
+        out = attn(t(x), None if mask is None else t(mask))
+    ref = jblocks.Attention(96, 2, use_flash=True, flash_threshold=1).apply(
+        {"params": params}, j(x), None if mask is None else j(mask))
+    assert calls == [(3, 2, 37, 48)]
+    assert_close(out, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
 def test_updateformer_matches_jax(rng, masked):
     """UpdateFormer (time + space AttnBlocks); the port's space attention
     goes through K2's plain version (kernel_threshold=1)."""
