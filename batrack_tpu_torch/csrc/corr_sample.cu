@@ -7,25 +7,65 @@
 // track-major (N, S, L*(2r+1)^2), each window flattened transposed (index
 // i*d + j reads x-offset i, y-offset j, the reference CorrBlock layout).
 //
-// Bound on the H100: about 88 MB moved (bf16 pyramid, f32 targets and
-// output) against about 1.9 GFLOP of f32 FMA at the davis_demo shapes, so
-// memory and the f32 pipes are close to even (~0.03 ms). Design: one warp
-// per (track, frame, level); each lane holds 4 of the C = 128 channels of
-// the target in registers (128 is the tracker's latent width, the one C the
-// kernel takes), so each of the (2r+2)^2 integer taps is one coalesced
-// 256-byte bf16 read of the channels-last pyramid, followed by a warp
-// reduction; the 2x2 bilinear blend runs from shared memory after.
-// All levels go in one launch: unlike the TPU's VMEM, nothing here forces
-// level 0 into its own call. Out-of-map taps are zero and skip their read.
+// What bounds it on the H100. Counting each byte once, about 88 MB move at
+// the davis_demo shapes (bf16 pyramid (12, 128, 96, 128) over 4 levels, f32
+// targets (2400, 12, 128) and output): 0.026 ms. But each window reads its
+// (2r+2)^2 = 64 taps x 128 channels (16 KB) on its own, 115,200 windows per
+// call: 1.89 GB of tap reads, 21x the bound's bytes, and windows of
+// different tracks overlap at random, so no tile of the map serves many of
+// them in order. The design moves those reads off the L2 where it can and
+// keeps the rest in flight:
+//
+//   * resident levels (decided by the wrapper, ops/corr_kernel.py): a level
+//     whose map of one frame fits in a block's shared memory (the coarse
+//     levels: 24x32 and 12x16 at davis_demo) is loaded once per block by two
+//     TMA boxes (64 channels x W x H each, 128-byte swizzle), and every
+//     window of the block's chunk of tracks in that frame reads its taps
+//     from shared memory. Their L2 traffic falls from about 944 MB to the
+//     maps' copies, tens of MB;
+//   * streamed levels (the fine ones): each window is two TMA boxes of a
+//     4-D tensor map (C, W, H, S) per level, 64 channels x 8 x 8 x 1 each,
+//     128-byte swizzle. TMA fills elements outside the map with zeros,
+//     grid_sample's zero padding, so no tap is tested against the bounds.
+//     One producer warp keeps the windows of the block's chunk in flight in
+//     a ring of 12 slots (two per consumer warp) on full/empty mbarriers;
+//   * the contraction runs on the tensor cores with the float32 target: A
+//     is the window, 64 taps x 128 channels, loaded with ldmatrix from the
+//     swizzled tile (4 row tiles x 8 k-steps of mma.sync.m16n8k16); B holds
+//     the target split into three bf16 terms t = t1 + t2 + t3 (each the
+//     rounding of what the ones before leave) in columns 0-2, so every
+//     product is exact and the three column sums add up to the float32 dot
+//     product within float32 rounding (about 5e-7 of the terms' size,
+//     against 7e-3 for the single bf16 term of the mxu variant);
+//   * the 2x2 bilinear blend and the 1/sqrt(C) scale run per warp from its
+//     64 taps in shared memory, and each window's 49 outputs are stored by
+//     consecutive lanes.
+//
+// With one block of six consumer warps per SM (the ring or a resident map
+// takes most of the shared memory), each window's work is a chain of
+// latencies, so the kernel keeps global loads and dependent products off
+// it: a consumer loads the next window's coords and target while it
+// contracts the current one; the producer reads the coords of 32 windows
+// at once; the four 16-row tiles of a window accumulate side by side, k-step
+// by k-step, with the next k-step's ldmatrix issued before this one's
+// products.
+//
+// The 128-byte swizzle matters for ldmatrix: tap rows are 128 bytes (one
+// 64-channel half of a pixel), so without it the 8 rows of one 8x8 matrix
+// all start on bank 0. With it, the 16-byte chunk c of row r sits at chunk
+// c ^ (r & 7), and 8 consecutive taps of a window row fall on 8 banks
+// groups. Out-of-map taps of a resident level point ldmatrix at a zero row.
+// The kernel takes radius 3 (8x8 windows, the tracker's corr_radius) and
+// C = 128; each block has one producer and six consumer warps.
 //
 // The TPU kernel's two options are two more kernels beside this one, each
 // with its own entry point, so the bf16 kernel above carries no branch for
 // them:
 //   * int8 maps (fmap_dtype="int8", per-level symmetric scale amax/127):
-//     the same warp per (track, frame, level); each lane reads a char4 of
-//     the tap, 128 bytes per tap instead of 256, and the level's scale is
-//     read from device memory and folded into 1/sqrt(C). The bytes fall
-//     from about 88 MB to about 63 MB at the davis_demo shapes.
+//     one warp per (track, frame, level); each lane reads a char4 of the
+//     tap, 128 bytes per tap instead of 256, and the level's scale is read
+//     from device memory and folded into 1/sqrt(C). The bytes fall from
+//     about 88 MB to about 63 MB at the davis_demo shapes.
 //   * the tensor-core contraction (contract="mxu"): the window's (2r+2)^2
 //     = 64 taps x 128 channels are the A operand of mma.sync.m16n8k16 (bf16,
 //     f32 accumulate), the target rounded to bf16 is column 0 of B (n padded
@@ -34,78 +74,264 @@
 //     so each lane loads 16 contiguous bytes of a tap row and A and B take
 //     the same permutation. Out-of-map taps enter the product as zero rows.
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kC = 128;  // channels: 4 per lane
+constexpr int kWarpsPerBlock = 8;  // the variants: one warp per window
+constexpr int kC = 128;            // channels, the tracker's latent width
 
-struct Levels {
-  long long off[kMaxLevels];  // element offset of level l in the flat buffer
-  int h[kMaxLevels];
-  int w[kMaxLevels];
+// ------------------------------------------------------------ main kernel
+constexpr int kRadius = 3;                       // the tracker's corr_radius
+constexpr int kD = 2 * kRadius + 2;              // 8 integer taps a side
+constexpr int kTaps = kD * kD;                   // 64: four 16-row tiles
+constexpr int kOut = (kD - 1) * (kD - 1);        // 49 outputs per window
+constexpr int kRowBytes = 128;                   // a tap's 64-channel half
+constexpr int kHalfBytes = kTaps * kRowBytes;    // one box of a window: 8 KB
+constexpr int kWindowBytes = 2 * kHalfBytes;     // 16 KB
+constexpr int kConsumerWarps = 6;
+constexpr int kSlotsPerWarp = 2;
+constexpr int kSlots = kConsumerWarps * kSlotsPerWarp;
+constexpr int kRingBytes = kSlots * kWindowBytes;  // 192 KB
+constexpr int kThreads = 32 * (kConsumerWarps + 1);
+constexpr int kSmemLimit = 232448;  // a block's most dynamic shared memory
+// beside the map or ring: the consumers' taps, the zero row, the barriers
+// and the slack that aligns the base to 1024 bytes (ops/corr_kernel.py
+// reserves the same)
+constexpr int kExtraBytes = 3072;
+static_assert(1024 + kConsumerWarps * kTaps * 4 + 128 + (2 * kSlots + 1) * 8 <= kExtraBytes,
+              "shared-memory reserve");
+
+// A level's map of one frame in shared memory: two halves of 64 channels,
+// each H*W rows of 128 bytes, the second starting 1024-aligned.
+__host__ __device__ constexpr int resident_half_bytes(int h, int w) {
+  return (h * w * kRowBytes + 1023) / 1024 * 1024;
+}
+
+// The launch-independent part: one tensor map per level (streamed: box
+// 64 x 8 x 8 x 1; resident: 64 x W x H x 1) and the level shapes. Encoded
+// once per pyramid (corr_sample_plan) and copied into every launch.
+struct alignas(64) CorrPlan {
+  CUtensorMap map[kMaxLevels];
+  int h[kMaxLevels], w[kMaxLevels], resident[kMaxLevels];
+  int L, S;
+  int region;  // bytes of shared memory for the resident map or the ring
 };
 
-__global__ void corr_sample_kernel(const __nv_bfloat16* __restrict__ pyr,
-                                   const float* __restrict__ targets,
-                                   const float* __restrict__ coords,
-                                   float* __restrict__ out, int N, int S,
-                                   int L, int radius, Levels lv,
-                                   float inv_sqrt_c) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long item = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (item >= (long long)N * S * L) return;  // warp-uniform exit
-  const int l = (int)(item % L);
-  const long long ns = item / L;
-  const int s = (int)(ns % S);
-  const long long n = ns / S;
-  const int D = 2 * radius + 2;
-  const int d = 2 * radius + 1;
-  float* taps = smem + warp * D * D;
+// Blocks of one level: resident levels take S x chunks blocks (frame, chunk
+// of res_chunk tracks), streamed ones ceil(N*S / stream_chunk) blocks of
+// (frame-major) windows.
+struct Segment {
+  int level, resident, first_block, chunks;
+};
 
-  // targets[n, s, :] of (N, S, C)
-  const float4 t = *reinterpret_cast<const float4*>(targets + ns * kC + lane * 4);
+struct alignas(64) CorrArgs {
+  CorrPlan plan;
+  Segment seg[kMaxLevels];  // resident levels first: their blocks are the longest
+  const float* targets;     // (N, S, C)
+  const float* coords;      // (S, N, 2)
+  float* out;               // (N, S, L * 49)
+  int N, res_chunk, stream_chunk;
+  float inv_sqrt_c;
+};
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of the given parity has completed. A phase
+// that never completes (a lost arrival) traps after about two seconds
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+
+// One box of a (channel, x, y, frame) tensor map into shared memory,
+// completing on `bar`; elements outside the map arrive as zeros, and the
+// barrier is credited with the whole box.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c, int x, int y, int s) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(x), "r"(y), "r"(s)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16, row-major) B (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Where a window starts in its level and its bilinear weights.
+struct Win {
+  int x0, y0;
+  float dx, dy;
+};
+
+__device__ __forceinline__ Win window_at(const float* coords, int N, int s, int n, int l) {
   const float sc = ldexpf(1.0f, -l);
-  const float cx = coords[((long long)s * N + n) * 2 + 0] * sc;
-  const float cy = coords[((long long)s * N + n) * 2 + 1] * sc;
+  const float2 c = *reinterpret_cast<const float2*>(coords + ((long long)s * N + n) * 2);
+  const float cx = c.x * sc, cy = c.y * sc;
   const float fx = floorf(cx), fy = floorf(cy);
-  const float dx = cx - fx, dy = cy - fy;  // weights from the unclamped coords
-  const int x0 = (int)fminf(fmaxf(fx, -1e6f), 1e6f) - radius;
-  const int y0 = (int)fminf(fmaxf(fy, -1e6f), 1e6f) - radius;
-  const int H = lv.h[l], W = lv.w[l];
-  const __nv_bfloat16* fm = pyr + lv.off[l] + (long long)s * H * W * kC;
+  Win w;
+  w.dx = cx - fx;  // weights from the unclamped coords
+  w.dy = cy - fy;
+  w.x0 = (int)fminf(fmaxf(fx, -1e6f), 1e6f) - kRadius;
+  w.y0 = (int)fminf(fmaxf(fy, -1e6f), 1e6f) - kRadius;
+  return w;
+}
 
-  for (int a = 0; a < D; ++a) {
-    const int yy = y0 + a;
-    for (int b = 0; b < D; ++b) {
-      const int xx = x0 + b;
-      if (yy < 0 || yy >= H || xx < 0 || xx >= W) {  // warp-uniform
-        if (lane == 0) taps[a * D + b] = 0.f;
-        continue;
-      }
-      const uint2 raw = *reinterpret_cast<const uint2*>(
-          fm + ((long long)yy * W + xx) * kC + lane * 4);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      float acc = lo.x * t.x;
-      acc = fmaf(lo.y, t.y, acc);
-      acc = fmaf(hi.x, t.z, acc);
-      acc = fmaf(hi.y, t.w, acc);
+// Term g (0, 1 or 2) of the three-term bf16 split of a pair of floats:
+// t1 = bf16(v), t2 = bf16(v - t1), t3 = bf16(v - t1 - t2); each difference
+// is exact in float32.
+__device__ __forceinline__ uint32_t split_term(float2 v, int g) {
+  const __nv_bfloat162 t1 = __floats2bfloat162_rn(v.x, v.y);
+  const float2 f1 = __bfloat1622float2(t1);
+  const float2 r1 = make_float2(v.x - f1.x, v.y - f1.y);
+  const __nv_bfloat162 t2 = __floats2bfloat162_rn(r1.x, r1.y);
+  const float2 f2 = __bfloat1622float2(t2);
+  const __nv_bfloat162 t3 = __floats2bfloat162_rn(r1.x - f2.x, r1.y - f2.y);
+  const __nv_bfloat162 t = g == 0 ? t1 : (g == 1 ? t2 : t3);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// This lane's share of a target row, loaded one window ahead of its use:
+// lanes g = lane / 4 < 3 hold channels 16ks + 2tig..+1 and 16ks + 8 + 2tig..+1
+// (tig = lane % 4) of every k-step ks, the other lanes zeros.
+struct TargetPart {
+  float2 v[8][2];
+};
+
+__device__ __forceinline__ TargetPart load_target(const float* __restrict__ target, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  TargetPart t;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) taps[a * D + b] = acc;
+  for (int ks = 0; ks < 8; ++ks) {
+    t.v[ks][0] = t.v[ks][1] = make_float2(0.f, 0.f);
+    if (g < 3) {
+      t.v[ks][0] = *reinterpret_cast<const float2*>(target + 16 * ks + 2 * tig);
+      t.v[ks][1] = *reinterpret_cast<const float2*>(target + 16 * ks + 8 + 2 * tig);
     }
   }
-  __syncwarp();
+  return t;
+}
 
-  float* o = out + item * (d * d);  // (N, S, L, d*d) == (N, S, L*d*d)
+// The A fragments of k-step ks for the four row tiles: ldmatrix.x4, lane L
+// giving the address of row L % 8 of matrix L / 8 (rows 0-7 | 8-15 of the
+// tile, then k 0-7 | 8-15), which yields the fragment in order. Row r of
+// tile m is tap 16m + r; k-step ks reads channels 16ks..16ks+15: half
+// ks / 4, 16-byte chunks 2(ks % 4) and 2(ks % 4) + 1 of the row, swizzled.
+// base[m], sw[m] and hs[m] are this lane's row address in tile m, its
+// swizzle (row & 7) and the distance to the row's second half (0 for the
+// zero row).
+__device__ __forceinline__ void load_kstep(uint32_t (&a)[4][4], const uint32_t (&base)[4],
+                                           const int (&sw)[4], const uint32_t (&hs)[4], int ks,
+                                           int lane) {
+  const int chunk = 2 * (ks & 3) + (lane >> 4);
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    ldmatrix_x4(a[m], base[m] + (ks >> 2) * hs[m] + ((chunk ^ sw[m]) << 4));
+}
+
+// The 64 taps of one window, each the dot product of its 128 channels with
+// the float32 target, into taps[a * 8 + b] (y offset a, x offset b).
+// mma.sync.m16n8k16 fragments (g = lane / 4, tig = lane % 4): B registers
+// {k 2tig..+1, col g}, {k 2tig+8..+9, col g}; D {row g, cols 2tig, 2tig+1},
+// {row g+8, same cols}; lanes g < 3 hold term g of the target. The four row
+// tiles accumulate side by side, k-step by k-step, with the next k-step's
+// fragments loaded before this one's products: four independent chains of
+// eight products instead of one of 32.
+__device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[4],
+                                            const int (&sw)[4], const uint32_t (&hs)[4],
+                                            const TargetPart& t, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  uint32_t b[8][2];
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    b[ks][0] = split_term(t.v[ks][0], g);
+    b[ks][1] = split_term(t.v[ks][1], g);
+  }
+  float c[4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0.f;
+  uint32_t a[2][4][4];
+  load_kstep(a[0], base, sw, hs, 0, lane);
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    if (ks + 1 < 8) load_kstep(a[(ks + 1) & 1], base, sw, hs, ks + 1, lane);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t(&f)[4] = a[ks & 1][m];
+      mma_bf16_16816(c[m], f[0], f[1], f[2], f[3], b[ks][0], b[ks][1]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    // columns 0 and 1 are on lane tig = 0, column 2 on the lane after it
+    float v0 = c[m][0] + c[m][1], v1 = c[m][2] + c[m][3];
+    v0 += __shfl_down_sync(0xffffffffu, v0, 1);
+    v1 += __shfl_down_sync(0xffffffffu, v1, 1);
+    if (tig == 0) {
+      taps[16 * m + g] = v0;
+      taps[16 * m + g + 8] = v1;
+    }
+  }
+}
+
+// The 2x2 blend of a D x D tap tile (shared memory) into its d x d
+// outputs, scaled, in the transposed flatten.
+__device__ __forceinline__ void blend_store(const float* taps, float dx, float dy, int radius,
+                                            float scale, float* o, int lane) {
+  const int D = 2 * radius + 2;
+  const int d = 2 * radius + 1;
   const float w00 = (1.f - dy) * (1.f - dx), w01 = (1.f - dy) * dx;
   const float w10 = dy * (1.f - dx), w11 = dy * dx;
   for (int k = lane; k < d * d; k += 32) {
@@ -113,13 +339,173 @@ __global__ void corr_sample_kernel(const __nv_bfloat16* __restrict__ pyr,
     const int j = k % d;  // y offset
     const float v = w00 * taps[j * D + i] + w01 * taps[j * D + i + 1] +
                     w10 * taps[(j + 1) * D + i] + w11 * taps[(j + 1) * D + i + 1];
-    o[k] = v * inv_sqrt_c;
+    o[k] = v * scale;
+  }
+}
+
+// One block: warps 0-5 consume windows, warp 6 is the producer (its lane 0
+// issues every TMA copy). A resident block loads its frame's map once and
+// its consumers take the tracks of its chunk in turn; a streamed block's
+// producer walks its chunk of windows in order, window j into slot
+// (j % 6) * 2 + (j / 6) % 2, so each slot is always read by the same
+// consumer warp, in order.
+__global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_constant__ CorrArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const CorrPlan& p = a.plan;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* taps = reinterpret_cast<float*>(smem + p.region) + warp * kTaps;
+  uint8_t* zero = smem + p.region + kConsumerWarps * kTaps * 4;  // one 128-byte zero row
+  uint64_t* full = reinterpret_cast<uint64_t*>(zero + kRowBytes);
+  uint64_t* empty = full + kSlots;
+  uint64_t* map_full = empty + kSlots;
+
+  int si = 0;
+  for (int i = 1; i < p.L; ++i)
+    if ((int)blockIdx.x >= a.seg[i].first_block) si = i;
+  const Segment sg = a.seg[si];
+  const int l = sg.level, blk = (int)blockIdx.x - sg.first_block;
+  const int N = a.N, S = p.S;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);  // lane 0 of the slot's consumer warp
+    }
+    mbar_init(map_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (threadIdx.x < kRowBytes / 4) reinterpret_cast<uint32_t*>(zero)[threadIdx.x] = 0u;
+  __syncthreads();
+
+  if (sg.resident) {
+    const int s = blk / sg.chunks, n0 = (blk % sg.chunks) * a.res_chunk;
+    const int n1 = min(N, n0 + a.res_chunk);
+    const int H = p.h[l], W = p.w[l];
+    const uint32_t half = resident_half_bytes(H, W);
+    if (warp == kConsumerWarps) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(map_full, 2 * H * W * kRowBytes);
+        tma_load_4d(smem, &p.map[l], map_full, 0, 0, 0, s);
+        tma_load_4d(smem + half, &p.map[l], map_full, 64, 0, 0, s);
+      }
+      return;
+    }
+    int n = n0 + warp;
+    if (n >= n1) return;
+    // each window's coords and target are loaded while the window before it
+    // is contracted (the last window's are loaded twice)
+    const float* tgt = a.targets + (long long)s * kC;  // track n's row at + n * S * kC
+    Win w = window_at(a.coords, N, s, n, l);
+    TargetPart t = load_target(tgt + (long long)n * S * kC, lane);
+    mbar_wait(map_full, 0);
+    const uint32_t map = smem_u32(smem), zrow = smem_u32(zero);
+    for (; n < n1; n += kConsumerWarps) {
+      const int nn = min(n + kConsumerWarps, n1 - 1);
+      const Win wn = window_at(a.coords, N, s, nn, l);
+      const TargetPart tn = load_target(tgt + (long long)nn * S * kC, lane);
+      uint32_t base[4], hs[4];
+      int sw[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int yy = w.y0 + 2 * m + ((lane >> 3) & 1), xx = w.x0 + (lane & 7);
+        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        const int row = in ? yy * W + xx : 0;
+        base[m] = in ? map + row * kRowBytes : zrow;
+        sw[m] = row & 7;
+        hs[m] = in ? half : 0u;
+      }
+      window_taps(taps, base, sw, hs, t, lane);
+      __syncwarp();
+      blend_store(taps, w.dx, w.dy, kRadius, a.inv_sqrt_c,
+                  a.out + (((long long)n * S + s) * p.L + l) * kOut, lane);
+      __syncwarp();
+      w = wn;
+      t = tn;
+    }
+    return;
+  }
+
+  const long long i0 = (long long)blk * a.stream_chunk;
+  const int cnt = (int)min((long long)a.stream_chunk, (long long)N * S - i0);
+  if (warp == kConsumerWarps) {
+    // the warp reads the coords of 32 windows at once; lane 0 issues their
+    // copies in order, each after its slot's previous window is read
+    for (int j0 = 0; j0 < cnt; j0 += 32) {
+      int xj = 0, yj = 0, sj = 0;
+      if (j0 + lane < cnt) {
+        const long long i = i0 + j0 + lane;
+        sj = (int)(i / N);
+        const Win w = window_at(a.coords, N, sj, (int)(i % N), l);
+        xj = w.x0;
+        yj = w.y0;
+      }
+      const int m = min(32, cnt - j0);
+      for (int k = 0; k < m; ++k) {
+        const int xk = __shfl_sync(0xffffffffu, xj, k), yk = __shfl_sync(0xffffffffu, yj, k);
+        const int sk = __shfl_sync(0xffffffffu, sj, k);
+        const int j = j0 + k, cw = j % kConsumerWarps, r = j / kConsumerWarps;
+        const int slot = cw * kSlotsPerWarp + r % kSlotsPerWarp;
+        if (r >= kSlotsPerWarp) mbar_wait(&empty[slot], (r / kSlotsPerWarp - 1) & 1);
+        if (lane == 0) {
+          uint8_t* dst = smem + slot * kWindowBytes;
+          mbar_arrive_expect_tx(&full[slot], kWindowBytes);
+          tma_load_4d(dst, &p.map[l], &full[slot], 0, xk, yk, sk);
+          tma_load_4d(dst + kHalfBytes, &p.map[l], &full[slot], 64, xk, yk, sk);
+        }
+      }
+    }
+    return;
+  }
+  const int rowsel = (lane & 7) + 8 * ((lane >> 3) & 1);  // this lane's row of a tile
+  uint32_t hs[4];
+  int sw[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    sw[m] = lane & 7;
+    hs[m] = kHalfBytes;
+  }
+  int j = warp;
+  if (j >= cnt) return;
+  // as in a resident block, the next window's coords and target are loaded
+  // while this one is contracted
+  long long i = i0 + j;
+  int s = (int)(i / N), n = (int)(i % N);
+  Win w = window_at(a.coords, N, s, n, l);
+  TargetPart t = load_target(a.targets + ((long long)n * S + s) * kC, lane);
+  for (int r = 0; j < cnt; j += kConsumerWarps, ++r) {
+    i = i0 + min(j + kConsumerWarps, cnt - 1);
+    const int sn = (int)(i / N), nn = (int)(i % N);
+    const Win wn = window_at(a.coords, N, sn, nn, l);
+    const TargetPart tn = load_target(a.targets + ((long long)nn * S + sn) * kC, lane);
+    const int slot = warp * kSlotsPerWarp + r % kSlotsPerWarp;
+    uint32_t base[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      base[m] = smem_u32(smem + slot * kWindowBytes) + (16 * m + rowsel) * kRowBytes;
+    mbar_wait(&full[slot], (r / kSlotsPerWarp) & 1);
+    window_taps(taps, base, sw, hs, t, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);  // the slot's taps are read
+    blend_store(taps, w.dx, w.dy, kRadius, a.inv_sqrt_c,
+                a.out + (((long long)n * S + s) * p.L + l) * kOut, lane);
+    __syncwarp();
+    s = sn;
+    n = nn;
+    w = wn;
+    t = tn;
   }
 }
 
 // ---------------------------------------------------------------- variants
 // One (track, frame, level) item of the two variant kernels: where its
 // window starts in the level's map and the bilinear weights.
+struct Levels {
+  long long off[kMaxLevels];  // element offset of level l in the flat buffer
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+};
+
 struct Window {
   long long ns;  // n * S + s: the row of targets and of out / L
   const void* level;  // the level's (H, W, C) map of frame s (bf16 or int8)
@@ -147,23 +533,6 @@ __device__ __forceinline__ Window locate(const T* pyr, long long item, const flo
   w.W = lv.w[w.l];
   w.level = pyr + lv.off[w.l] + (long long)s * w.H * w.W * kC;
   return w;
-}
-
-// The 2x2 blend of the warp's D x D taps (shared memory) into its d x d
-// outputs, scaled, in the transposed flatten of the bf16 kernel.
-__device__ __forceinline__ void blend_store(const float* taps, const Window& w, int radius,
-                                            float scale, float* o, int lane) {
-  const int D = 2 * radius + 2;
-  const int d = 2 * radius + 1;
-  const float w00 = (1.f - w.dy) * (1.f - w.dx), w01 = (1.f - w.dy) * w.dx;
-  const float w10 = w.dy * (1.f - w.dx), w11 = w.dy * w.dx;
-  for (int k = lane; k < d * d; k += 32) {
-    const int i = k / d;  // x offset
-    const int j = k % d;  // y offset
-    const float v = w00 * taps[j * D + i] + w01 * taps[j * D + i + 1] +
-                    w10 * taps[(j + 1) * D + i] + w11 * taps[(j + 1) * D + i + 1];
-    o[k] = v * scale;
-  }
 }
 
 // int8 maps, float32 contraction: lane k holds channels 4k..4k+3.
@@ -204,23 +573,13 @@ __global__ void corr_sample_int8_kernel(const int8_t* __restrict__ pyr,
     }
   }
   __syncwarp();
-  blend_store(taps, w, radius, scales[w.l] * inv_sqrt_c, out + item * ((D - 1) * (D - 1)), lane);
+  blend_store(taps, w.dx, w.dy, radius, scales[w.l] * inv_sqrt_c,
+              out + item * ((D - 1) * (D - 1)), lane);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (16 x 8, f32) += A (16 x 16, bf16, row-major) B (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Tap row r (a * D + b) of the window as this lane's A words: channels
@@ -294,11 +653,11 @@ __global__ void corr_sample_mxu_kernel(const __nv_bfloat16* __restrict__ pyr,
     }
   }
   __syncwarp();
-  blend_store(taps, w, radius, inv_sqrt_c, out + item * ((D - 1) * (D - 1)), lane);
+  blend_store(taps, w.dx, w.dy, radius, inv_sqrt_c, out + item * ((D - 1) * (D - 1)), lane);
 }
 
-// The host arrays of one launch as kernel arguments; false when the
-// arguments are outside what the kernels take.
+// The host arrays of one variant launch as kernel arguments; false when
+// the arguments are outside what the kernels take.
 bool read_levels(Levels* lv, int C, int L, int radius, const long long* level_off,
                  const int* level_h, const int* level_w) {
   if (L < 1 || L > kMaxLevels || C != kC || radius < 0) return false;
@@ -315,41 +674,140 @@ struct LaunchShape {
   size_t shmem;
 };
 
-// One warp per item, kWarpsPerBlock items per block, a D x D float tap
-// tile per warp in shared memory.
+// The variants: one warp per item, kWarpsPerBlock items per block, a D x D
+// float tap tile per warp in shared memory.
 LaunchShape launch_shape(long long items, int radius) {
   const int D = 2 * radius + 2;
   return {dim3((unsigned)((items + kWarpsPerBlock - 1) / kWarpsPerBlock)),
           dim3(32 * kWarpsPerBlock), sizeof(float) * kWarpsPerBlock * D * D};
 }
 
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: looked up through the runtime's
+// entry-point query, so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
 }  // namespace
 
-// pyr: bf16, levels concatenated, level l (S, H_l, W_l, C) channels-last at
-// element offset level_off[l]; targets f32 (N, S, C); coords f32 (S, N, 2)
-// at level-0 resolution; out f32 (N, S, L*(2r+1)^2). C must be 128.
-// level_* are host arrays. Returns cudaGetLastError() after the launch.
-extern "C" int corr_sample_pyramid(const void* pyr, const void* targets,
-                                   const void* coords, void* out, int N, int S,
-                                   int C, int L, int radius,
-                                   const long long* level_off,
-                                   const int* level_h, const int* level_w,
-                                   void* stream) {
-  Levels lv;
-  if (!read_levels(&lv, C, L, radius, level_off, level_h, level_w))
+// Size in bytes of the host buffer corr_sample_plan fills.
+extern "C" int corr_plan_bytes() { return (int)sizeof(CorrPlan); }
+
+// Encode the tensor maps of a packed bf16 pyramid into `plan` (a host
+// buffer of corr_plan_bytes()), once per pyramid: pyr holds the levels
+// concatenated, level l (S, H_l, W_l, C) channels-last at element offset
+// level_off[l]; resident[l] != 0 keeps level l's map of a frame in shared
+// memory (the wrapper decides; its map must fit beside kExtraBytes and
+// measure at most 256 x 256). Returns a cudaError_t.
+extern "C" int corr_sample_plan(void* plan, const void* pyr, int S, int C, int L,
+                                const long long* level_off, const int* level_h,
+                                const int* level_w, const int* resident) {
+  if (L < 1 || L > kMaxLevels || C != kC || S < 1) return (int)cudaErrorInvalidValue;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  CorrPlan p;
+  memset(&p, 0, sizeof(p));
+  p.L = L;
+  p.S = S;
+  int region = 0;
+  for (int l = 0; l < L; ++l) {
+    const int h = level_h[l], w = level_w[l];
+    const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(pyr) + level_off[l];
+    if (h < 1 || w < 1 || reinterpret_cast<uintptr_t>(base) % 16)
+      return (int)cudaErrorInvalidValue;
+    p.h[l] = h;
+    p.w[l] = w;
+    p.resident[l] = resident[l] != 0;
+    const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)S};
+    const cuuint64_t strides[3] = {(cuuint64_t)kC * 2, (cuuint64_t)kC * 2 * w,
+                                   (cuuint64_t)kC * 2 * w * h};
+    cuuint32_t box[4] = {64, (cuuint32_t)kD, (cuuint32_t)kD, 1};
+    if (p.resident[l]) {
+      if (h > 256 || w > 256) return (int)cudaErrorInvalidValue;
+      box[1] = (cuuint32_t)w;
+      box[2] = (cuuint32_t)h;
+      region = region > 2 * resident_half_bytes(h, w) ? region : 2 * resident_half_bytes(h, w);
+    } else {
+      region = region > kRingBytes ? region : kRingBytes;
+    }
+    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+    if (encode(&p.map[l], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<__nv_bfloat16*>(base),
+               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  if (region + kExtraBytes > kSmemLimit) return (int)cudaErrorInvalidValue;
+  p.region = region;
+  memcpy(plan, &p, sizeof(p));
+  return (int)cudaFuncSetAttribute(corr_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemLimit);
+}
+
+// One launch for every level of a planned pyramid: targets f32 (N, S, C);
+// coords f32 (S, N, 2) at level-0 resolution; out f32 (N, S, L*49).
+// radius must be 3. res_chunk: tracks per block of a resident level;
+// stream_chunk: windows per block of a streamed level. Returns
+// cudaGetLastError() after the launch.
+extern "C" int corr_sample_pyramid(const void* plan, const void* targets, const void* coords,
+                                   void* out, int N, int radius, int res_chunk,
+                                   int stream_chunk, void* stream) {
+  if (radius != kRadius || N < 0 || res_chunk < 1 || stream_chunk < 1)
     return (int)cudaErrorInvalidValue;
-  const long long items = (long long)N * S * L;
-  if (items == 0) return (int)cudaSuccess;
-  const LaunchShape ls = launch_shape(items, radius);
-  corr_sample_kernel<<<ls.grid, ls.block, ls.shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(pyr), static_cast<const float*>(targets),
-      static_cast<const float*>(coords), static_cast<float*>(out), N, S, L, radius, lv,
-      1.0f / sqrtf((float)kC));
+  if (N == 0) return (int)cudaSuccess;
+  CorrArgs a;
+  memcpy(&a.plan, plan, sizeof(CorrPlan));
+  const CorrPlan& p = a.plan;
+  long long blocks = 0;
+  int ns = 0;
+  for (int pass = 1; pass >= 0; --pass) {  // resident levels first
+    for (int l = 0; l < p.L; ++l) {
+      if (p.resident[l] != pass) continue;
+      Segment& sg = a.seg[ns++];
+      sg.level = l;
+      sg.resident = pass;
+      sg.first_block = (int)blocks;
+      sg.chunks = (N + res_chunk - 1) / res_chunk;
+      blocks += pass ? (long long)p.S * sg.chunks
+                     : ((long long)N * p.S + stream_chunk - 1) / stream_chunk;
+    }
+  }
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  a.targets = static_cast<const float*>(targets);
+  a.coords = static_cast<const float*>(coords);
+  a.out = static_cast<float*>(out);
+  a.N = N;
+  a.res_chunk = res_chunk;
+  a.stream_chunk = stream_chunk;
+  a.inv_sqrt_c = 1.0f / sqrtf((float)kC);
+  corr_sample_kernel<<<(unsigned)blocks, kThreads, p.region + kExtraBytes,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-// As corr_sample_pyramid, on int8 maps: scales is a device array (L,) f32,
-// level l's dequantisation scale, written on the same stream before.
+// The two variants take the level table of every launch: pyr (bf16 or
+// int8), levels concatenated as above; level_* are host arrays; any radius.
+// int8 maps: scales is a device array (L,) f32, level l's dequantisation
+// scale, written on the same stream before.
 extern "C" int corr_sample_pyramid_int8(const void* pyr, const void* targets,
                                         const void* coords, void* out, const void* scales,
                                         int N, int S, int C, int L, int radius,
@@ -368,8 +826,8 @@ extern "C" int corr_sample_pyramid_int8(const void* pyr, const void* targets,
   return (int)cudaGetLastError();
 }
 
-// As corr_sample_pyramid, with the channel contraction on the tensor cores
-// (the target rounded to bf16).
+// bf16 maps with the channel contraction on the tensor cores (the target
+// rounded to bf16).
 extern "C" int corr_sample_pyramid_mxu(const void* pyr, const void* targets,
                                        const void* coords, void* out, int N, int S, int C,
                                        int L, int radius, const long long* level_off,

@@ -18,8 +18,10 @@ counterpart.
 K4, `flash_attention`, replaces batrack_tpu/tracker/blocks.py::
 _tpu_flash_attention, the split-head route to JAX's Pallas TPU flash
 attention that `Attention` takes under BATRACK_TPU_ATTN=flash: (B, h, N, 48)
-with an optional key mask. It folds the heads into the batch axis and
-launches the same kernel template with one head per batch row.
+with an optional key mask. On the tracker's split views of one packed qkv
+it launches the same kernel template as K2, on the views' own rows and
+head lanes, with no copy in or out; other layouts are folded into one head
+per batch row first.
 
 bf16 input runs on Hopper's tensor cores (TMA-fed shared-memory ring,
 wgmma, 128 queries per block), float32 input on the float32 pipes. The bf16
@@ -208,18 +210,51 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
     return _softmax_pv(q, k, v, scale, key_mask).to(q.dtype).view(B, h, N, d)
 
 
+def split_row_stride(x: torch.Tensor) -> Optional[int]:
+    """R when the (B, h, N, 48) tensor x is a head split of rows of R
+    elements (strides (N*R, 48, R, 1), as the views of one packed qkv are)
+    that the kernel can read in place: R a multiple of 8 and at least h*48,
+    the base 16-byte aligned (the TMA copies' rule). None otherwise."""
+    if x.ndim != 4 or x.shape[-1] != _KERNEL_HEAD_DIM:
+        return None
+    _, h, N, d = x.shape
+    R = x.stride(2)
+    if (x.stride() != (N * R, d, R, 1) or R % 8 or R < h * d
+            or x.data_ptr() % 16):
+        return None
+    return R
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Split-head softmax attention, (B, h, N, 48) -> (B, h, N, 48).
 
     key_mask: optional (N,) bool; False keys are excluded from every query's
     softmax (logit -1e30), as K2 excludes them. The JAX route assumes at
-    least one live key; with none, each query averages the N values."""
+    least one live key; with none, each query averages the N values.
+
+    When q, k and v are head splits of rows (`split_row_stride`), k and v
+    of one row stride, the kernel reads them in place, as K2 reads the
+    packed qkv, and writes (B, N, h*48) rows whose (B, h, N, 48) view it
+    returns: the caller's merge of the heads is then a view too. Any other
+    layout is folded into (B*h, N, 48) copies first."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, key_mask)
-    out = _one_head(q, k, v, scale, key_mask, 4, "flash_attention")
+    r_q, r_k, r_v = (split_row_stride(x) for x in (q, k, v))
+    if (q.device.type == "cuda" and r_q and r_k and r_k == r_v and q.shape == k.shape == v.shape
+            and q.dtype == k.dtype == v.dtype and q.dtype in (torch.float32, torch.bfloat16)
+            and q.device == k.device == v.device):
+        B, h, N, d = q.shape
+        out = torch.empty((B, N, h * d), dtype=q.dtype, device=q.device)
+        _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask, out, B, N, N, h, r_q, r_k,
+                scale, "flash_attention")
+        flash_attention.strided_launches += 1
+        out = out.view(B, N, h, d).permute(0, 2, 1, 3)
+    else:
+        out = _one_head(q, k, v, scale, key_mask, 4, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0          # every launch
+flash_attention.strided_launches = 0  # launches on the split views, no fold copies

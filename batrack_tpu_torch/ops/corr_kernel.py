@@ -12,6 +12,12 @@ On a CUDA tensor it launches the kernel (one launch for all levels); on a
 CPU tensor it runs the plain version, `corr_sample_plain`, which the CUDA
 kernel is held against on the card.
 
+The kernel keeps a level's map of one frame in shared memory when it fits
+(`resident_levels`: the coarse levels) and streams the windows of the
+others by TMA; the choice is made here from the shapes, and the tensor maps
+of a packed pyramid are encoded once (`_plan`, keyed by the buffer's
+address and shapes, which is all a map encodes) and reused by its calls.
+
 The TPU kernel's two options have their own kernels in the same source:
   * fmap_dtype="int8" (pack_pyramid): each level quantised to symmetric
     int8 with the scale amax/127, computed in the pyramid's own dtype as
@@ -27,6 +33,7 @@ does, as scripts/corr_ab.py does for the TPU kernel.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -36,6 +43,32 @@ from batrack_tpu_torch.ops.corr import corr_sample_level
 
 FMAP_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 CONTRACTS = ("vpu", "mxu")
+
+# The main kernel's layout (csrc/corr_sample.cu): the window radius it takes
+# (the tracker's corr_radius), a block's shared memory on the H100, what the
+# kernel keeps beside a resident map (kExtraBytes), and the work per block.
+KERNEL_RADIUS = 3
+SMEM_LIMIT = 232448
+SMEM_RESERVE = 3072
+RES_CHUNK = 256     # tracks per block of a resident level (one frame's map)
+STREAM_CHUNK = 128  # windows per block of a streamed level
+_PLAN_CACHE = 16    # packed pyramids whose tensor maps are kept
+
+
+def resident_map_bytes(h: int, w: int, C: int = 128) -> int:
+    """Shared memory of one frame's (h, w, C) bf16 map held by a block: two
+    halves of C/2 channels, each h*w rows of C bytes, rounded up to 1024
+    bytes (the 128-byte swizzle's period)."""
+    half = h * w * C
+    return 2 * (-(-half // 1024) * 1024)
+
+
+def resident_levels(shapes, C: int = 128) -> Tuple[bool, ...]:
+    """Per level (h, w): whether the kernel keeps one frame's map in shared
+    memory. It must fit beside the kernel's reserve, and measure at most
+    256 x 256 (one TMA box per half). The other levels are streamed."""
+    return tuple(h <= 256 and w <= 256 and resident_map_bytes(h, w, C) + SMEM_RESERVE <= SMEM_LIMIT
+                 for h, w in shapes)
 
 
 class CorrPyramid(NamedTuple):
@@ -144,35 +177,96 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
         raise ValueError("corr_sample: inputs on different devices")
     d = 2 * radius + 1
     out = torch.empty((N, S, L * d * d), dtype=torch.float32, device=targets.device)
-    lib = cuda_build.load("corr_sample")
-    args = [pyr.flat.data_ptr(), targets.data_ptr(), coords.data_ptr(), out.data_ptr()]
-    argtypes = [ctypes.c_void_p] * 4
-    if int8:
-        fn, what = lib.corr_sample_pyramid_int8, "corr_sample (int8 maps)"
-        args.append(pyr.scales.data_ptr())  # read by the kernel on the same stream
-        argtypes.append(ctypes.c_void_p)
-    elif contract == "mxu":
-        fn, what = lib.corr_sample_pyramid_mxu, "corr_sample (mxu)"
+    lib = _library()
+    main = not int8 and contract == "vpu"
+    if main:
+        if radius != KERNEL_RADIUS:
+            raise ValueError(f"corr_sample: radius {radius} (the kernel takes "
+                             f"{KERNEL_RADIUS}, the tracker's corr_radius)")
+        plan = _plan(lib, pyr)
     else:
-        fn, what = lib.corr_sample_pyramid, "corr_sample"
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    offs = (ctypes.c_longlong * L)(*pyr.offsets)
-    hs = (ctypes.c_int * L)(*[h for h, _ in pyr.shapes])
-    ws = (ctypes.c_int * L)(*[w for _, w in pyr.shapes])
+        args = [pyr.flat.data_ptr(), targets.data_ptr(), coords.data_ptr(), out.data_ptr()]
+        if int8:
+            args.append(pyr.scales.data_ptr())  # read by the kernel on the same stream
+        tables = _level_tables(pyr)
     with torch.cuda.device(targets.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(*args, N, S, C, L, radius, offs, hs, ws, stream)
-    cuda_build.check(status, what)
-    if int8:
-        corr_sample.int8_launches += 1
-    elif contract == "mxu":
-        corr_sample.mxu_launches += 1
-    else:
+        if main:
+            status = lib.corr_sample_pyramid(plan, targets.data_ptr(), coords.data_ptr(),
+                                             out.data_ptr(), N, radius, RES_CHUNK, STREAM_CHUNK,
+                                             stream)
+        elif int8:
+            status = lib.corr_sample_pyramid_int8(*args, N, S, C, L, radius, *tables, stream)
+        else:
+            status = lib.corr_sample_pyramid_mxu(*args, N, S, C, L, radius, *tables, stream)
+    if main:
+        cuda_build.check(status, "corr_sample")
         corr_sample.launches += 1
+    elif int8:
+        cuda_build.check(status, "corr_sample (int8 maps)")
+        corr_sample.int8_launches += 1
+    else:
+        cuda_build.check(status, "corr_sample (mxu)")
+        corr_sample.mxu_launches += 1
     return out
+
+
+_lib: Optional[ctypes.CDLL] = None
+_plans: "OrderedDict[tuple, ctypes.Array]" = OrderedDict()
+
+
+def _library() -> ctypes.CDLL:
+    """csrc/corr_sample.cu, built at first use, its entry points typed once."""
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("corr_sample")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        tables = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.corr_plan_bytes.restype = i32
+        lib.corr_plan_bytes.argtypes = []
+        lib.corr_sample_plan.restype = i32
+        lib.corr_sample_plan.argtypes = [ptr, ptr, i32, i32, i32, *tables, ctypes.POINTER(i32)]
+        lib.corr_sample_pyramid.restype = i32
+        lib.corr_sample_pyramid.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.corr_sample_pyramid_mxu.restype = i32
+        lib.corr_sample_pyramid_mxu.argtypes = [ptr] * 4 + [i32] * 5 + tables + [ptr]
+        lib.corr_sample_pyramid_int8.restype = i32
+        lib.corr_sample_pyramid_int8.argtypes = [ptr] * 5 + [i32] * 5 + tables + [ptr]
+        _lib = lib
+    return _lib
+
+
+def _level_tables(pyr: CorrPyramid):
+    """The level offsets, heights and widths as C arrays."""
+    L = len(pyr.shapes)
+    return ((ctypes.c_longlong * L)(*pyr.offsets), (ctypes.c_int * L)(*[h for h, _ in pyr.shapes]),
+            (ctypes.c_int * L)(*[w for _, w in pyr.shapes]))
+
+
+def _plan(lib: ctypes.CDLL, pyr: CorrPyramid) -> ctypes.Array:
+    """The main kernel's tensor maps for a packed bf16 pyramid, encoded on
+    its first call and reused by the next ones. A map encodes only the
+    buffer's address, shapes and the residency chosen from them, so the key
+    is exactly that: a new pyramid packed at the same address with the same
+    shapes gets the same maps."""
+    key = (pyr.flat.device.index, pyr.flat.data_ptr(), pyr.S, pyr.C, pyr.shapes)
+    plan = _plans.get(key)
+    if plan is not None:
+        _plans.move_to_end(key)
+        return plan
+    L = len(pyr.shapes)
+    if any(h < 1 or w < 1 for h, w in pyr.shapes):
+        raise ValueError(f"corr_sample: empty pyramid level in {pyr.shapes}")
+    plan = ctypes.create_string_buffer(lib.corr_plan_bytes())
+    resident = (ctypes.c_int * L)(*resident_levels(pyr.shapes, pyr.C))
+    with torch.cuda.device(pyr.flat.device):
+        status = lib.corr_sample_plan(plan, pyr.flat.data_ptr(), pyr.S, pyr.C, L,
+                                      *_level_tables(pyr), resident)
+    cuda_build.check(status, "corr_sample (tensor maps)")
+    _plans[key] = plan
+    if len(_plans) > _PLAN_CACHE:
+        _plans.popitem(last=False)
+    return plan
 
 
 corr_sample.launches = 0       # bf16 maps, float32 contraction (the tracker's)

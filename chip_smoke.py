@@ -62,9 +62,12 @@ the bf16 kernel's tiling: query and key counts that leave its 128-query
 and 128-key tiles ragged, fewer keys than one tile, and key masks that
 mask whole key tiles. Phase 3 adds one bf16 forward under
 BATRACK_TPU_ATTN=flash, held against the fused route's forward at the bf16
-limits: K4 must launch as often as K2 does there, and K2 not at all.
-Phases 4 and 6 check 24 attention launches per append (6 space blocks x 4
-iterations), and that K3, K4 and K1's options launch 0 times.
+limits: K4 must launch as often as K2 does there, every time on the split
+views in place (its strided counter), and K2 not at all. Phases 4 and 6
+check 24 attention launches and 4 K1 launches per append (6 space blocks x
+4 iterations, one K1 per iteration), and that K3, K4 and K1's options
+launch 0 times. Phase 2 prints, beside K1's bound, the bytes of its in-map
+taps and of the resident levels' map copies.
 
 It then prints one {"kernels": [...]} line, the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
@@ -109,6 +112,7 @@ NQ = 6 * 400                      # n_src source frames x PATCHES_PER_FRAME
 HIDDEN, HEADS = 384, 8
 SHARDS = 4                        # K2 kv=: one rank's queries of a 4-way track shard
 SPACE_LAUNCHES = 6 * 4            # K2 per append: 6 space blocks x 4 refinement iterations
+CORR_LAUNCHES = 4                 # K1 per append: one per refinement iteration
 K3_B = S * HEADS                  # K3: (batch x heads, tracks, head dim) of space attention
 FRAMES, STEADY_FROM, STAGE_FROM = 40, 16, 32
 HT, WD = 480, 640
@@ -221,7 +225,8 @@ def phase_k1(dev, gen):
     sums in another order), each timed beside its plain version and its
     bound. No single PyTorch call computes the windows: no library time."""
     from batrack_tpu_torch.ops.corr import build_pyramid
-    from batrack_tpu_torch.ops.corr_kernel import corr_sample, corr_sample_plain, pack_pyramid
+    from batrack_tpu_torch.ops.corr_kernel import (RES_CHUNK, corr_sample, corr_sample_plain,
+                                                   pack_pyramid, resident_levels)
     from batrack_tpu_torch.utils.config import full_fp32
 
     log(f"[K1] corr_sample: fmaps ({S}, {C}, {H4}, {W4}) x {LEVELS} levels, "
@@ -246,6 +251,15 @@ def phase_k1(dev, gen):
         ny = ((ys >= 0) & (ys < fl.shape[2])).sum(-1)
         taps += int((nx * ny).sum().item())
     n_out = NQ * S * LEVELS * (2 * RADIUS + 1) ** 2
+    # what the main kernel reads beside the bound's bytes: its in-map taps
+    # (256 bytes each, read from shared memory for resident levels and
+    # through the L2 for streamed ones) and the copies of the resident
+    # levels' maps, one per (frame, chunk of RES_CHUNK tracks)
+    shapes = [tuple(fl.shape[2:]) for fl in pyramid]
+    resident = resident_levels(shapes, C)
+    tap_mb = taps * 2 * C / 1e6
+    resident_mb = sum(S * -(-NQ // RES_CHUNK) * h * w * C * 2
+                      for (h, w), res in zip(shapes, resident) if res) / 1e6
     entries = []
     for fd, ct, name, line in (("bf16", "vpu", "corr_sample", 52),
                                ("bf16", "mxu", "corr_sample_mxu", 110),
@@ -274,6 +288,9 @@ def phase_k1(dev, gen):
         log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
             f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {2 * C * taps / 1e9:.2f} "
             f"GFLOP {'bf16' if ct == 'mxu' else 'f32'})")
+        if name == "corr_sample":
+            log(f"  tap bytes {tap_mb:.1f} MB (in-map taps x {2 * C} B); levels resident in "
+                f"shared memory {resident}, their map copies {resident_mb:.1f} MB")
         entries.append({"name": name, "route": "cuda",
                         "source": "batrack_tpu_torch/csrc/corr_sample.cu",
                         "replaces": f"batrack_tpu/ops/pallas_corr.py:{line}",
@@ -480,7 +497,8 @@ def phase_k4(dev, gen):
 
     d = HIDDEN // HEADS
     scale = d ** -0.5
-    log(f"[K4] flash_attention: q, k, v ({S}, {HEADS}, {NQ}, {d}), split from a packed qkv")
+    log(f"[K4] flash_attention: q, k, v ({S}, {HEADS}, {NQ}, {d}), split from a packed qkv "
+        "(read in place), and contiguous (one head per batch row)")
     qkv32 = torch.randn((S, NQ, 3 * HIDDEN), generator=gen, device=dev)
     mask = torch.rand((NQ,), generator=gen, device=dev) > 0.2
     errs = {}
@@ -496,15 +514,31 @@ def phase_k4(dev, gen):
                 check(f"K4 vs plain, {str(dt)[6:]}, key mask {'no' if m is None else 'yes'}",
                       errs[(dt, m is None)],
                       bf16_tol(ref) if dt == torch.bfloat16 else TOL["k2_f32"])
-    # the tracker's route: bf16, no key mask (one window)
+            # contiguous heads take the folded route: the same kernel on copies
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            strided = flash_attention.strided_launches
+            out = flash_attention(qc, kc, vc, scale, mask)
+            torch.cuda.synchronize()
+            if flash_attention.strided_launches != strided:
+                raise AssertionError("contiguous K4 input took the in-place route")
+            ref = flash_attention_plain(qc, kc, vc, scale, mask)
+            check(f"K4 vs plain, {str(dt)[6:]}, contiguous heads, key mask yes",
+                  max_err(out, ref), bf16_tol(ref) if dt == torch.bfloat16 else TOL["k2_f32"])
+    # the tracker's route: bf16, no key mask (one window), the split views
     q, k, v = split_heads(qkv32.to(torch.bfloat16), HEADS)
+    strided = flash_attention.strided_launches
     ms = cuda_ms(lambda: flash_attention(q, k, v, scale), reps=30)
+    if flash_attention.strided_launches - strided != 32:  # 30 reps + 2 warm-up calls
+        raise AssertionError("K4 on the split views did not read them in place")
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    folded_ms = cuda_ms(lambda: flash_attention(qc, kc, vc, scale), reps=30)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, scale), reps=3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps=30)
     nbytes = 4 * S * NQ * HIDDEN * 2  # q, k, v read, the output written
     bound_ms, bound_by, what = attention_bound(S * HEADS * NQ * NQ, d, nbytes)
     log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  "
-        f"bound_ms {bound_ms:.4f} ({bound_by}: {what})")
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {what}); contiguous heads (one head per "
+        f"batch row) {folded_ms:.4f}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu",
             "replaces": "batrack_tpu/tracker/blocks.py:148",
@@ -655,7 +689,8 @@ def flash_route_check(ad, tin):
     """One forward of `tin` under BATRACK_TPU_ATTN=flash (space attention
     split into heads, K4) against the fused route's forward (K2), at phase
     3's bf16 limits. K4 must launch as often as K2 does on the fused
-    forward, and K2 not at all. Returns K4's launches."""
+    forward, each time on the split views in place, and K2 not at all.
+    Returns K4's launches."""
     from batrack_tpu_torch.ops.attention import flash_attention, fused_qkv_attention
     from batrack_tpu_torch.utils.config import full_fp32
 
@@ -665,10 +700,12 @@ def flash_route_check(ad, tin):
         torch.cuda.synchronize()
         fused = fused_qkv_attention.launches
         fused_qkv_attention.launches = flash_attention.launches = 0
+        flash_attention.strided_launches = 0
         with attention_route("flash"):
             out, _ = ad.forward(tin.window_rgbd, tin.queries)
         torch.cuda.synchronize()
     launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_strided": flash_attention.strided_launches,
                 "fused_qkv_attention": fused_qkv_attention.launches}
     diff = {k: max_err(getattr(out, k), getattr(ref, k)) for k in ("tracks", "vis", "dynamic")}
     log(f"  bfloat16, BATRACK_TPU_ATTN=flash vs fused route {json.dumps(diff)}; launches "
@@ -676,9 +713,11 @@ def flash_route_check(ad, tin):
     for k, v in diff.items():
         check(f"{k}, flash route vs fused route", v, TOL["tracker_bf16"][k])
     if not (fused and launches["flash_attention"] == fused
+            and launches["flash_attention_strided"] == fused
             and launches["fused_qkv_attention"] == 0):
         raise AssertionError(f"the flash route must launch K4 where the fused one launches K2 "
-                             f"({fused} times) and K2 never: {launches}")
+                             f"({fused} times), each on the split views in place, and K2 "
+                             f"never: {launches}")
     return launches["flash_attention"]
 
 
@@ -841,9 +880,10 @@ def phase_slam(cfg, images, depths, dev, profile=False):
         "weights put no track over the visibility gate; [ba] runs live edges)")
     if not (launches["corr_sample"] and launches["fused_qkv_attention"]):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if launches["fused_qkv_attention"] != SPACE_LAUNCHES * appends:
-        raise AssertionError(f"K2 launched {launches['fused_qkv_attention']} times over "
-                             f"{appends} appends, not {SPACE_LAUNCHES} per append")
+    if (launches["fused_qkv_attention"] != SPACE_LAUNCHES * appends
+            or launches["corr_sample"] != CORR_LAUNCHES * appends):
+        raise AssertionError(f"K2 and K1 launched {launches} over {appends} appends, not "
+                             f"{SPACE_LAUNCHES} and {CORR_LAUNCHES} per append")
     if poses.shape != (n_frames, 7) or not np.isfinite(poses).all():
         raise AssertionError(f"trajectory {poses.shape} not finite")
     if not np.allclose(np.linalg.norm(poses[:, 3:], axis=1), 1.0, atol=1e-4):
@@ -987,11 +1027,12 @@ def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
             f"frames, no mesh: {main_fps:.3f}")
         log(f"  stage ms per call (synchronised, frames {STAGE_FROM}-{FRAMES - 1}): "
             f"{json.dumps(stage_ms)}")
-        if not (launches["corr_sample"]
+        if not (launches["corr_sample"] == CORR_LAUNCHES * appends
                 and launches["fused_qkv_attention_kv"] == SPACE_LAUNCHES * appends
                 and launches["fused_qkv_attention_kv"] == launches["fused_qkv_attention"]):
-            raise AssertionError(f"under a mesh every append must run K1, and K2 with a kv= "
-                                 f"source {SPACE_LAUNCHES} times and only so: {launches}")
+            raise AssertionError(f"under a mesh every append must run K1 {CORR_LAUNCHES} times, "
+                                 f"and K2 with a kv= source {SPACE_LAUNCHES} times and only so: "
+                                 f"{launches}")
         # zero edge weights, as in phase 4: the poses are the motion model's,
         # so this holds the mesh path's ring and BA plumbing, not the tracker
         wit = ba["witness"]["poses"]

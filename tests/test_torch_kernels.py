@@ -15,8 +15,9 @@ one output rounding off the plain version, while a kernel that drops a
 key tile is many ulps off. The shapes leave the bf16 kernel's 128-query
 and 128-key tiles ragged, and the "tiles" key masks mask whole key tiles,
 under the same limits. K1's int8 and mxu variants are held to 1e-4 like
-K1 (exact products, sums in another order), K4 (split-head attention on
-the same kernel) to K2's limits.
+K1 (exact products, sums in another order; K1's three-term bf16 split of
+the target leaves about 5e-7 of the terms' size), K4 (split-head attention
+on the same kernel) to K2's limits.
 """
 
 import math
@@ -31,10 +32,17 @@ from batrack_tpu_torch.ops.attention import (
     flash_attention_plain,
     fused_qkv_attention,
     fused_qkv_attention_plain,
+    split_row_stride,
     vmem_attention,
     vmem_attention_plain,
 )
-from batrack_tpu_torch.ops.corr_kernel import corr_sample, corr_sample_plain, pack_pyramid
+from batrack_tpu_torch.ops.corr_kernel import (
+    corr_sample,
+    corr_sample_plain,
+    pack_pyramid,
+    resident_levels,
+    resident_map_bytes,
+)
 from batrack_tpu_torch.utils.config import full_fp32
 
 
@@ -150,6 +158,44 @@ def test_flash_attention_plain_is_the_packed_layout(rng, masked):
     assert torch.equal(flash_attention_plain(q, k, v, 0.3, mask), out)
 
 
+@pytest.mark.parametrize("S,H,W,L,resident", [
+    (12, 96, 128, 4, (False, False, True, True)),  # davis_demo: 24x32 and 12x16 stay
+    (3, 24, 32, 4, (True, True, True, True)),      # the kernel tests' small maps
+    (2, 9, 13, 2, (True, True)),
+    (2, 64, 80, 3, (False, False, True)),          # both kinds in one launch
+    (1, 8, 300, 2, (False, True)),                 # 300 columns: wider than one TMA box
+])
+def test_corr_kernel_residency(S, H, W, L, resident):
+    """Which levels K1 keeps in shared memory, from the pyramid's shapes:
+    one frame's map must fit beside the kernel's reserve (232,448 bytes in
+    all) and measure at most 256 x 256; the rest are streamed."""
+    fm = torch.zeros((S, 128, H, W))
+    pyr = pack_pyramid(corr.build_pyramid(fm, L))
+    assert resident_levels(pyr.shapes) == resident
+    assert resident_map_bytes(24, 32) == 196608  # davis_demo's level 2
+    assert resident_map_bytes(48, 64) + 3072 > 232448  # its level 1 does not fit
+    assert resident_map_bytes(9, 13) == 2 * 15 * 1024  # halves rounded up to 1024 bytes
+
+
+def test_flash_attention_direct_route_strides():
+    """K4 reads q, k and v in place when they are head splits of packed rows
+    (strides (N*R, 48, R, 1), R % 8 == 0, 16-byte bases): the tracker's
+    views of one qkv. Contiguous (B, h, N, 48) tensors, rows that are not a
+    multiple of 8 elements and misaligned bases take the folded route."""
+    B, N, h, d = 2, 19, 3, 48
+    qkv = torch.zeros((B, N, 3 * h * d), dtype=torch.bfloat16)
+    q, k, v = qkv.view(B, N, 3, h, d).permute(2, 0, 3, 1, 4)
+    assert [split_row_stride(x) for x in (q, k, v)] == [3 * h * d] * 3
+    kv = torch.zeros((B, N, 2 * h * d))
+    assert split_row_stride(kv.view(B, N, 2, h, d).permute(2, 0, 3, 1, 4)[1]) == 2 * h * d
+    assert split_row_stride(torch.zeros((B, h, N, d))) is None
+    odd = torch.zeros((B, N, 3 * h * d + 4))[..., :3 * h * d]  # rows of 436 elements
+    assert split_row_stride(odd.view(B, N, 3, h, d).permute(2, 0, 3, 1, 4)[0]) is None
+    shifted = torch.zeros((B, N, 3 * h * d + 8), dtype=torch.bfloat16)[..., 1:3 * h * d + 1]
+    assert split_row_stride(shifted.reshape(B, N, 3, h, d).permute(2, 0, 3, 1, 4)[0]) is None
+    assert split_row_stride(q[..., :32]) is None  # head dim other than the kernel's 48
+
+
 def test_attention_kv_source_of_wrong_width_raises(rng):
     qkv = torch.zeros((1, 5, 3 * 96))
     with pytest.raises(ValueError, match="kv"):
@@ -172,18 +218,60 @@ def key_mask(kind, Nk: int, rng):
 
 # ---------------------------------------------------------------- on the card
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,shape", [(4, (3, 70, 24, 32)), (2, (2, 33, 9, 13))])
-def test_corr_kernel_matches_plain_on_gpu(rng, cuda, L, shape):
-    """K1 == its plain version on the same bf16 maps (1e-4)."""
+@pytest.mark.parametrize("L,shape,margin", [
+    (4, (3, 70, 24, 32), 8.0),    # every level resident
+    (2, (2, 33, 9, 13), 8.0),
+    (3, (2, 50, 64, 80), 8.0),    # levels 0-1 streamed by TMA, level 2 resident
+    (3, (2, 41, 16, 24), 60.0),   # most windows partly or wholly outside the map
+    (3, (2, 50, 64, 80), 60.0),   # the same for streamed boxes: negative and far-out origins
+    (3, (3, 301, 64, 80), 8.0),   # ragged last chunks: 301 tracks, 903 windows per level
+])
+def test_corr_kernel_matches_plain_on_gpu(rng, cuda, L, shape, margin):
+    """K1 == its plain version on the same bf16 maps (1e-4), with levels
+    kept in shared memory and levels streamed (resident_levels), windows
+    far outside the map, and track counts that leave the last block's chunk
+    ragged; only the main kernel's counter moves."""
     S, N, H, W = shape
-    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=128, N=N, H=H, W=W))
+    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=128, N=N, H=H, W=W, margin=margin))
     pyr = pack_pyramid(corr.build_pyramid(fm, L))
-    before = corr_sample.launches
+    counters = ("launches", "mxu_launches", "int8_launches")
+    before = {c: getattr(corr_sample, c) for c in counters}
     out = corr_sample(pyr, tg, xy, 3)
     torch.cuda.synchronize()
-    assert corr_sample.launches == before + 1
+    assert {c: getattr(corr_sample, c) - before[c] for c in counters} == {
+        "launches": 1, "mxu_launches": 0, "int8_launches": 0}
     with full_fp32():
         torch.testing.assert_close(out, corr_sample_plain(pyr, tg, xy, 3), atol=1e-4, rtol=0)
+    # a second call reuses the pyramid's tensor maps and gives the same output
+    assert torch.equal(corr_sample(pyr, tg, xy, 3), out)
+
+
+@pytest.mark.gpu
+def test_corr_kernel_keeps_float32_targets_on_gpu(rng, cuda):
+    """K1 contracts the float32 target as three bf16 terms on the tensor
+    cores: within 3e-6 of a float64 evaluation of the same windows. A CPU
+    emulation of the split over 20,000 windows (N(0, 1) maps and targets,
+    scaled by 1/sqrt(128)) gives 6.2e-7 for three terms and 1.2e-5 for two,
+    so this check sees a lost term that the 1e-4 limit against the float32
+    plain version does not."""
+    S, N, H, W, L = 2, 50, 64, 80, 3  # streamed and resident levels
+    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=128, N=N, H=H, W=W))
+    pyr = pack_pyramid(corr.build_pyramid(fm, L))
+    out = corr_sample(pyr, tg, xy, 3)
+    levels = [pyr.level(lvl).double().permute(0, 3, 1, 2) for lvl in range(L)]
+    ref = corr.corr_sample_pyramid(levels, tg.double().transpose(0, 1), xy.double(), 3)
+    torch.testing.assert_close(out.double(), ref.transpose(0, 1), atol=3e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_corr_kernel_raises_on_what_it_does_not_take(rng, cuda):
+    """No fallback: a radius other than 3 or a non-bf16 map raises on the card."""
+    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=2, C=128, N=5, H=16, W=24))
+    pyr = pack_pyramid(corr.build_pyramid(fm, 2))
+    with pytest.raises(ValueError, match="radius"):
+        corr_sample(pyr, tg, xy, 2)
+    with pytest.raises(TypeError):
+        corr_sample(pyr._replace(flat=pyr.flat.float()), tg, xy, 3)
 
 
 @pytest.mark.gpu
@@ -285,23 +373,31 @@ def test_corr_kernel_options_match_plain_on_gpu(rng, cuda, fmap_dtype, contract,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["split", "contiguous"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", [None, "random", "tiles"])
 @pytest.mark.parametrize("N,H", [(333, 8), (70, 2)])
-def test_flash_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, mask_kind, N, H):
+def test_flash_attention_kernel_matches_plain_on_gpu(rng, cuda, layout, dtype, mask_kind, N, H):
     """K4 on split heads (3, H, N, 48) taken from a packed qkv, as the
-    tracker's split-head route gives them; N = 333 and 70 leave the bf16
-    kernel's 128-query and 128-key tiles ragged."""
+    tracker's split-head route gives them (read in place: the strided
+    counter moves), and on contiguous (3, H, N, 48) tensors (folded into one
+    head per batch row); N = 333 and 70 leave the bf16 kernel's 128-query
+    and 128-key tiles ragged."""
     B, d = 3, 48
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * d)).astype(np.float32)).to(cuda, dtype)
     q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    if layout == "contiguous":
+        q, k, v = (x.contiguous() for x in (q, k, v))
     mask = key_mask(mask_kind, N, rng)
     mask = None if mask is None else mask.to(cuda)
-    before = flash_attention.launches
+    before, before_strided = flash_attention.launches, flash_attention.strided_launches
     out = flash_attention(q, k, v, d ** -0.5, mask)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.strided_launches == before_strided + (layout == "split")
     assert out.dtype == dtype and out.shape == (B, H, N, d)
+    if layout == "split":  # the merge of the heads is a view of the kernel's rows
+        assert out.transpose(1, 2).is_contiguous()
     with full_fp32():
         ref = flash_attention_plain(q, k, v, d ** -0.5, mask)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
