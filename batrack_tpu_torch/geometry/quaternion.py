@@ -72,6 +72,29 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> unit quaternion [x, y, z, w].
+
+    Shepperd's method with scipy's branch choice (Rotation.from_matrix): the
+    largest of the trace and the three diagonal entries picks the component
+    computed from a square, so the quaternion's sign matches scipy's, and
+    with it every TUM file the JAX package writes. Branch-free (all four
+    candidates, then a gather), so it runs batched on any device."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = torch.stack([
+        torch.stack([1.0 - tr + 2.0 * m00, m10 + m01, m20 + m02, m21 - m12], -1),
+        torch.stack([m01 + m10, 1.0 - tr + 2.0 * m11, m21 + m12, m02 - m20], -1),
+        torch.stack([m02 + m20, m12 + m21, 1.0 - tr + 2.0 * m22, m10 - m01], -1),
+        torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], -1),
+    ], -2)  # (..., 4, 4): one candidate per branch
+    choice = torch.stack([m00, m11, m22, tr], -1).argmax(-1)
+    q = torch.gather(cands, -2, choice[..., None, None].expand(choice.shape + (1, 4)))[..., 0, :]
+    return quat_normalize(q)
+
+
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Axis-angle 3-vector -> unit quaternion, stable near zero."""
     theta_sq = (phi * phi).sum(-1, keepdim=True)

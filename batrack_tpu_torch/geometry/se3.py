@@ -2,8 +2,9 @@
 
 Layout (..., 7) = [tx, ty, tz, qx, qy, qz, qw], the lietorch convention the
 JAX package uses (batrack_tpu/geometry/se3.py). Only the operations the
-sparse-SLAM path calls are here: exp, log, mul, inv, act4, matrix and the
-left retraction.
+sparse-SLAM path, the trajectory tools and stage 3 call are here: identity,
+exp, log, mul, inv, act, act4, matrix, from_matrix and the left
+retraction.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from batrack_tpu_torch.geometry.quaternion import (
+    matrix_to_quat,
     quat_conj,
     quat_mul,
     quat_normalize,
@@ -21,6 +23,12 @@ from batrack_tpu_torch.geometry.quaternion import (
     so3_left_jacobian_inverse,
     so3_log,
 )
+
+
+def identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    out = torch.zeros(tuple(shape) + (7,), dtype=dtype, device=device)
+    out[..., 6] = 1.0
+    return out
 
 
 def inv(g: torch.Tensor) -> torch.Tensor:
@@ -35,6 +43,11 @@ def mul(g1: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     q = quat_normalize(quat_mul(q1, q2))
     t = t1 + quat_rotate(q1, t2)
     return torch.cat([t, q], dim=-1)
+
+
+def act(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply to 3D point(s): R p + t."""
+    return quat_rotate(g[..., 3:7], p) + g[..., :3]
 
 
 def act4(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -75,3 +88,8 @@ def matrix(g: torch.Tensor) -> torch.Tensor:
     bot = torch.zeros_like(top[..., :1, :])
     bot[..., 0, 3] = 1.0
     return torch.cat([top, bot], dim=-2)
+
+
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Homogeneous (..., 4, 4) matrix -> SE3 vector."""
+    return torch.cat([m[..., :3, 3], matrix_to_quat(m[..., :3, :3])], dim=-1)

@@ -124,12 +124,13 @@ def bilinear_sample_per_frame(
     )
 
 
-def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
+def _linspace(start: float, stop: float, num: int, device,
+              dtype=torch.float32) -> torch.Tensor:
     """jnp.linspace's formula: start + i * step, last point exactly stop."""
     if num == 1:
-        return torch.full((1,), start, dtype=torch.float32, device=device)
+        return torch.full((1,), start, dtype=dtype, device=device)
     step = (stop - start) / (num - 1)
-    out = start + torch.arange(num, dtype=torch.float32, device=device) * step
+    out = start + torch.arange(num, dtype=dtype, device=device) * step
     out[-1] = stop
     return out
 
@@ -139,16 +140,19 @@ def interpolate_bilinear(im: torch.Tensor, out_hw: tuple, align_corners: bool = 
 
     im: (..., C, H, W) -> (..., C, out_h, out_w). Written with explicit
     gathers on the JAX package's formula so both packages agree exactly.
+    Sample coordinates are float32, float64 for a float64 image (as
+    jnp.linspace gives under jax_enable_x64).
     """
     H, W = im.shape[-2:]
     out_h, out_w = out_hw
     dev = im.device
+    cdt = torch.float64 if im.dtype == torch.float64 else torch.float32
     if align_corners:
-        ys = _linspace(0.0, H - 1.0, out_h, dev)
-        xs = _linspace(0.0, W - 1.0, out_w, dev)
+        ys = _linspace(0.0, H - 1.0, out_h, dev, cdt)
+        xs = _linspace(0.0, W - 1.0, out_w, dev, cdt)
     else:
-        ys = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) * (H / out_h) - 0.5
-        xs = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) * (W / out_w) - 0.5
+        ys = (torch.arange(out_h, dtype=cdt, device=dev) + 0.5) * (H / out_h) - 0.5
+        xs = (torch.arange(out_w, dtype=cdt, device=dev) + 0.5) * (W / out_w) - 0.5
     y0 = torch.floor(ys).clamp(0, H - 1)
     x0 = torch.floor(xs).clamp(0, W - 1)
     y1 = (y0 + 1).clamp(0, H - 1)

@@ -109,10 +109,28 @@ class BATrack:
     def _to_device(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
+    def upload_frame(self, image, depth) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Start the host-to-device copy of one frame: a pinned host copy,
+        then a non-blocking copy to this system's device. Call it one frame
+        ahead of __call__, so that the copy overlaps the current frame's
+        work, and pass the tensors it returns to __call__ in place of the
+        numpy arrays (the JAX package's BATrack.upload_frame)."""
+        image = np.asarray(image)
+        if image.dtype != np.uint8:
+            image = np.clip(image, 0, 255).astype(np.uint8)
+        img = torch.from_numpy(np.ascontiguousarray(image))
+        dep = torch.from_numpy(np.ascontiguousarray(depth, dtype=np.float32))
+        if self.device.type == "cuda":
+            img, dep = img.pin_memory(), dep.pin_memory()
+        return (img.to(self.device, non_blocking=True),
+                dep.to(self.device, non_blocking=True))
+
     def __call__(self, tstamp, image, depth, intrinsics) -> None:
         """Track one frame. image: (H, W, 3) uint8 (other types are clipped
         to 0..255 and truncated to uint8, as the JAX package does); depth:
-        (H, W) or (H, W, 1) metric; intrinsics: (4,) [fx, fy, cx, cy]."""
+        (H, W) or (H, W, 1) metric; intrinsics: (4,) [fx, fy, cx, cy].
+        image and depth may be numpy arrays or the tensors upload_frame
+        returns."""
         if (self.n + 1) >= self.dims.N:
             raise RuntimeError(
                 f"Buffer size {self.dims.N} exhausted; increase slam.BUFFER_SIZE")

@@ -51,7 +51,7 @@ class MDTrackerAdapter:
             torch.manual_seed(seed)
             model = MDTracker(self.p, mesh=mesh)
         if state_dict is not None:
-            model.load_state_dict(state_dict)
+            model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device,
                               dtype=getattr(torch, model_cfg.compute_dtype)).eval()
         # static-branch merge (batrack.py:556-566); when both flags are off

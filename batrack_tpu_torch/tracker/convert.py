@@ -1,4 +1,5 @@
-"""Flax MDTracker params -> this package's state dict.
+"""Tracker weights: the md_tracker.pth loader, and Flax MDTracker params ->
+this package's state dict.
 
 The port's MDTracker names its parameters as the reference md_tracker.pth
 does, so that file loads directly. This module carries weights the other
@@ -6,7 +7,7 @@ way: a Flax parameter tree of the JAX package (as numpy arrays, the layout
 batrack_tpu/tracker/convert.py produces) becomes a state dict by reference
 name: conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in),
 GroupNorm scale -> weight. The round trip through the JAX converter is
-exact.
+exact. `load_checkpoint` reads md_tracker.pth itself.
 """
 
 from __future__ import annotations
@@ -71,3 +72,16 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     _dense(p["zeroMLPflow"], "zeroMLPflow", out)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """md_tracker.pth -> state dict of batrack_tpu_torch.tracker.MDTracker
+    (float32 CPU tensors). Unwraps a {'model': ...} checkpoint and strips the
+    `module.` prefix DataParallel leaves, as the JAX package's loader does
+    (batrack_tpu/tracker/convert.py); MDTrackerAdapter(state_dict=...) then
+    loads it strictly on its device."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "model" in sd and not hasattr(sd["model"], "shape"):
+        sd = sd["model"]
+    return {k.replace("module.", ""): torch.as_tensor(v).detach().to(torch.float32)
+            for k, v in sd.items()}

@@ -39,5 +39,18 @@ class StageTimer:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
+    def add(self, name: str, seconds: float) -> None:
+        """Count one call of `name` timed by the caller."""
+        if self.enabled:
+            self.totals[name] += seconds
+            self.counts[name] += 1
+
     def ms_per_call(self) -> Dict[str, float]:
         return {k: self.totals[k] / self.counts[k] * 1000.0 for k in self.totals}
+
+    def report(self) -> str:
+        lines = [f"{'stage':>20} | {'total s':>9} | {'calls':>6} | {'ms/call':>8}"]
+        for name in sorted(self.totals, key=lambda k: -self.totals[k]):
+            t, c = self.totals[name], self.counts[name]
+            lines.append(f"{name:>20} | {t:9.3f} | {c:6d} | {t / c * 1000:8.1f}")
+        return "\n".join(lines)

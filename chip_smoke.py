@@ -38,13 +38,43 @@ Phases, each of which fails the run when it fails:
    forward of phase 3's input under the mesh against the single-device
    forward at phase 3's bf16 limits, and the patch-sharded backend update
    on phase 5's live-edge state against phase 5's CPU update within 10x
-   phase 5's witness.
+   phase 5's witness;
+7. the user's pipeline through the CLIs: a Sintel-layout dataset of the
+   synthetic scene (40 frames 480x640 as PNG with libpng's choice of row
+   filters, .npy priors, .dpt ground truth at prior x 1.01, .cam files) in
+   a temporary directory, whose frames the port's stream must decode
+   bitwise equal to the arrays written (decode ms per frame timed here);
+   `cli.run_slam.main` at davis_demo on it, as shipped (K1 and K2 counted
+   around the call: 4 and 24 per append; K3, K4 and K1's options 0),
+   error_sum.txt equal at its rounding to eval_metrics recomputed from the
+   written trajectory; `cli.run_refine.main` (grid 10, 200 steps) and
+   `cli.eval_depth.main` with and without --refined. Then stage 3 at the
+   same shape (T=40, N=400, S=23) on a synthetic results dict: 8 Adam steps
+   in float64 on the card against the CPU within 10x a witness (the CPU
+   run of inputs moved by one float64 rounding) and at least 1e-5, and 200
+   steps of tests/test_refine.py::test_scale_recovery's configuration in
+   float32 held to that test's bar. Prints frames/s, decode ms, the CLI's
+   own (unsynchronised) stage ms, ms per Adam step and peak memory; with
+   --profile, also device time by kernel over 5 stage-3 steps.
 
 With --ranks, under torchrun (one process per GPU), it runs only the
 multi-device path at the group's world size: a tracker forward held
 against the single-device one, the SLAM loop with live edges, timed, and
 one patch-sharded backend update of its final state against the CPU
 update (README).
+
+With --decode-ab [ROUNDS], it runs only an A/B of the frame decode through
+`cli.run_slam.main` at davis_demo (main_decode_ab): phase 7's dataset
+written with libpng's row filters and again unfiltered, and per round four
+runs in a turning order: `filtered` and `unfiltered` as shipped (the
+streams decode ahead on worker processes, data/streams.py::_ahead),
+`filtered_threads` (the same look-ahead on as many threads) and
+`filtered_inline` (the loop's own thread decodes, as the JAX CLI does).
+One warm-up run first is not counted. It records decode ms per frame on
+one thread per dataset, and per run frames/s over the whole CLI run and
+the CLI timer's unsynchronised host ms per stage ("stream" is the loop's
+wait for its next frame, which inline holds the decode), then medians,
+and writes them to chiprun_out/decode_ab.json.
 
 Phase 2 also holds K2 with a kv= source (queries of all 2400 tracks, the
 shape phase 6 gives it at one rank, and of a quarter of them, one rank of
@@ -86,9 +116,17 @@ import hashlib
 import json
 import math
 import os
+import pickle
+import shutil
+import struct
 import subprocess
 import sys
+import statistics
+import tempfile
 import time
+import zlib
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -165,7 +203,9 @@ def cuda_ms(fn, reps, warmup=2):
 
 
 def max_err(a, b):
-    return (a.float() - b.float()).abs().max().item()
+    """Largest absolute difference, in float64 when either side is."""
+    dt = torch.float64 if torch.float64 in (a.dtype, b.dtype) else torch.float32
+    return (a.to(dt) - b.to(dt)).abs().max().item()
 
 
 def bf16_tol(ref):
@@ -777,26 +817,34 @@ def mesh_tracker_check(cfg, tin, mesh, gen):
 
 
 # ---------------------------------------------------------------- main path
-def profile_frames(slam, images, depths, frames):
-    """Device time by kernel over `frames` (one append and its updates) from
-    torch.profiler, and the device's busy share of the wall time."""
+def profile_device(label, fn):
+    """Device time by kernel over one call of `fn` from torch.profiler, and
+    the device's busy share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in frames:
-            slam(t, images[t], depths[t], INTR)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"[profile] frames {frames[0]}-{frames[-1]}: wall {wall_us / 1e3:.1f} ms, device busy "
+    log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f} %), {sum(e.count for e in kernels)} "
         "kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:110]}")
+
+
+def profile_frames(slam, images, depths, frames):
+    """profile_device over `frames` (one append and its updates)."""
+    def run():
+        for t in frames:
+            slam(t, images[t], depths[t], INTR)
+
+    profile_device(f"frames {frames[0]}-{frames[-1]}", run)
 
 
 OFF_PATH = ("vmem_attention", "flash_attention", "corr_sample_mxu", "corr_sample_int8")
@@ -1149,6 +1197,435 @@ def phase_ranks(cfg, images, depths, mesh, gen):
     return result
 
 
+# ---------------------------------------------------------------- the user's pipeline
+GT_DEPTH_SCALE = 1.01         # the .dpt ground truth is the prior x 1.01 (tests/test_cli_e2e.py)
+REFINE_CHECK_STEPS = 8
+REFINE_GT_DEPTH = 5.0         # tests/test_refine.py's flat scene
+
+
+def write_sintel_dataset(root, images, depths, poses_w2c):
+    """The Sintel layout tests/test_cli_e2e.py writes: PNG frames (each row
+    filtered as libpng's heuristic picks, as image tools write them), .npy
+    priors, .dpt ground-truth depth at the prior x 1.01 and .cam files
+    (K and the world-to-camera extrinsics). Returns the directories and the
+    uint8 frames written."""
+    from batrack_tpu_torch.data.png import write_png
+    from batrack_tpu_torch.data.streams import TAG_FLOAT
+    from batrack_tpu_torch.geometry import se3
+
+    dirs = {k: root / k for k in ("rgb", "depth", "depth_gt", "cam")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    K = np.array([[INTR[0], 0, INTR[2]], [0, INTR[1], INTR[3]], [0, 0, 1]], np.float64)
+    w2c = se3.matrix(torch.from_numpy(poses_w2c)).numpy().astype(np.float64)
+    frames = np.clip(images, 0, 255).astype(np.uint8)  # BATrack's own conversion
+    tag = np.float32(TAG_FLOAT).tobytes()
+    for t in range(len(frames)):
+        stem = f"frame_{t:04d}"
+        write_png(dirs["rgb"] / f"{stem}.png", frames[t])
+        np.save(dirs["depth"] / f"{stem}.npy", depths[t])
+        gt = (depths[t] * GT_DEPTH_SCALE).astype(np.float32)
+        (dirs["depth_gt"] / f"{stem}.dpt").write_bytes(
+            tag + struct.pack("<ii", gt.shape[1], gt.shape[0]) + gt.tobytes())
+        (dirs["cam"] / f"{stem}.cam").write_bytes(tag + K.tobytes() + w2c[t][:3].tobytes())
+    return dirs, frames
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def phase_pipeline(dev):
+    """Phase 7a: the user's pipeline through the CLIs on a Sintel-layout
+    dataset written to a temporary directory: run_slam at davis_demo, then
+    run_refine (grid 10, 200 steps) and eval_depth with and without
+    --refined."""
+    import batrack_tpu_torch.refine as refine_pkg
+    import batrack_tpu_torch.slam as slam_pkg
+    from batrack_tpu_torch.cli import eval_depth, run_refine, run_slam
+    from batrack_tpu_torch.data import png, sintel_rgbd_stream
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+    from batrack_tpu_torch.utils.config import load_config
+    from batrack_tpu_torch.utils.evaluation import eval_metrics
+    from batrack_tpu_torch.utils.synth import make_scene
+    from batrack_tpu_torch.utils.traj import load_traj, read_tum_file
+
+    config = Path(__file__).resolve().parent / "configs" / "davis_demo.yaml"
+    cfg = load_config(str(config))
+    images, depths, poses_gt = make_scene(FRAMES, HT, WD, INTR)
+    with tempfile.TemporaryDirectory(prefix="batrack_pipeline_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        dirs, frames = write_sintel_dataset(root / "data", images, depths, poses_gt)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = 0
+        for t, image, _, _, _ in sintel_rgbd_stream(dirs["rgb"], dirs["depth"],
+                                                    dirs["depth_gt"], dirs["cam"]):
+            if t == -1:
+                break
+            if image.dtype != np.uint8 or not np.array_equal(image, frames[t]):
+                raise AssertionError(f"frame {t}: the stream's decoded PNG differs from the "
+                                     "array written")
+            n += 1
+        if n != FRAMES:
+            raise AssertionError(f"the stream yielded {n} frames, not {FRAMES}")
+        t_stream = time.perf_counter() - t0
+        pngs = sorted(dirs["rgb"].glob("*.png"))
+        t0 = time.perf_counter()
+        for path in pngs:
+            png.read_image(path)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / len(pngs)
+        filters = np.zeros(5, np.int64)
+        for path in pngs:
+            filters += png_row_filters(path)
+        log(f"[pipeline] Sintel layout, {FRAMES} frames {HT}x{WD}, written in {t_write:.1f} s "
+            f"(row filters None/Sub/Up/Average/Paeth: {filters.tolist()}); the stream decoded "
+            f"every frame bitwise equal to the array written ({1e3 * t_stream / FRAMES:.1f} ms "
+            f"per frame with its depth, .dpt and .cam); PNG decode alone {decode_ms:.1f} ms per "
+            "frame on the host, one thread")
+
+        savedir, name = root / "out", "synth"
+        argv = ["--config", str(config), "--device", str(dev), "model.init_dir=",
+                f"data.imagedir={dirs['rgb']}", f"data.depthdir={dirs['depth']}",
+                f"data.depthdir_gt={dirs['depth_gt']}", f"data.calib={dirs['cam']}",
+                f"data.gt_traj={dirs['cam']}", "data.traj_format=sintel",
+                f"data.savedir={savedir}", f"data.name={name}"]
+        made = []
+
+        class Observed(slam_pkg.BATrack):
+            """The CLI's BATrack, kept to read its counts and its own
+            (unsynchronised) stage timer; it runs as shipped."""
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        corr_sample.launches = fused_qkv_attention.launches = 0
+        zero_off_path()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched(slam_pkg, "BATrack", Observed):
+            rc = run_slam.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"corr_sample": corr_sample.launches,
+                    "fused_qkv_attention": fused_qkv_attention.launches, **off_path_launches()}
+        if rc != 0 or len(made) != 1:
+            raise AssertionError(f"run_slam returned {rc} with {len(made)} BATrack")
+        slam = made[0]
+        appends = slam.append_count
+        stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
+        log(f"  run_slam: launches {launches} over {appends} appends")
+        log(f"  run_slam: {FRAMES} frames in {wall:.2f} s, {FRAMES / wall:.3f} frames/s (whole "
+            "CLI run as shipped: config, model set-up, decode, SLAM, artifacts)")
+        log(f"  run_slam host ms per call as the CLI logs them (unsynchronised: enqueue, and "
+            f"\"stream\" is the loop's wait for its next decoded frame; phase 4 gives the "
+            f"synchronised stage times): {json.dumps(stage_ms)}")
+        log(f"  run_slam peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if (appends != len(range(0, FRAMES, cfg.slam.kf_stride))
+                or launches["corr_sample"] != CORR_LAUNCHES * appends
+                or launches["fused_qkv_attention"] != SPACE_LAUNCHES * appends):
+            raise AssertionError(f"K1 and K2 launched {launches} over {appends} appends, not "
+                                 f"{CORR_LAUNCHES} and {SPACE_LAUNCHES} per append")
+
+        outdir = savedir / name
+        pred = read_tum_file(str(outdir / "batrack_traj.txt"))
+        again = eval_metrics(pred, gt_traj=load_traj(str(dirs["cam"]), "sintel"))
+        err_sum = (savedir / "error_sum.txt").read_text().splitlines()
+        log(f"  error_sum.txt: {err_sum[0].strip()}")
+        if err_sum[1:4] != [f"{v:.5f}" for v in again]:
+            raise AssertionError(f"error_sum.txt {err_sum[1:4]} differs from eval_metrics of "
+                                 f"batrack_traj.txt {again}")
+        with open(outdir / "results.pkl", "rb") as f:
+            res = pickle.load(f)
+        if (pred[0].shape != (FRAMES, 7) or not np.isfinite(pred[0]).all()
+                or res["cams_T_world"].shape != (FRAMES, 4, 4)
+                or res["trajs_2d_disp"].shape != (FRAMES, cfg.slam.PATCHES_PER_FRAME,
+                                                  cfg.slam.S_local, 3)
+                or not np.array_equal(res["rgbs"], frames.astype(float))):
+            raise AssertionError("run_slam's artifacts are not the run's")
+
+        step_ms = []
+
+        def timed_loop(params, data, image_hw, rcfg, verbose=False):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = loop(params, data, image_hw, rcfg, verbose=verbose)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end) / rcfg.niter)
+            return out
+
+        loop = refine_pkg.global_alignment_loop
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched(refine_pkg, "global_alignment_loop", timed_loop):
+            rc = run_refine.main(["--result_dir", str(savedir), "--scenes", name,
+                                  "--device", str(dev)])
+        stage_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(outdir / "results_refined.pkl", "rb") as f:
+            refined = pickle.load(f)
+        if (rc != 0 or len(step_ms) != 1 or refined["dmaps_scaled"].shape != (FRAMES, HT, WD, 1)
+                or not np.isfinite(refined["dmaps_scaled"]).all()):
+            raise AssertionError("run_refine wrote no finite dmaps_scaled of the frames' shape")
+        log(f"  run_refine (grid 10, 200 Adam steps, all five losses; T={FRAMES}, "
+            f"N={cfg.slam.PATCHES_PER_FRAME}, S={cfg.slam.S_local}): {step_ms[0]:.3f} ms per "
+            f"step (CUDA events around the loop), whole stage {stage_s:.2f} s, peak device "
+            f"memory {peak:.2f} GiB")
+        for flag in ([], ["--refined"]):
+            if eval_depth.main(["--result_dir", str(savedir), "--scenes", name] + flag) != 0:
+                raise AssertionError(f"eval_depth {flag} failed")
+        table = (savedir / "eval_depth.txt").read_text().splitlines()
+        vals = [float(v) for ln in table if ln.split("|")[0].strip() in (name, "mean")
+                for v in ln.split("|")[1:]]
+        if len(vals) != 32 or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"eval_depth tables not finite: {table}")
+    return {"fps": FRAMES / wall, "stage_ms": stage_ms, "decode_ms": decode_ms,
+            "appends": appends, "launches": launches, "refine_ms_per_step": step_ms[0],
+            "refine_s": stage_s}
+
+
+def png_row_filters(path):
+    """Count of each row filter type (0-4) in an 8-bit RGB PNG."""
+    buf = Path(path).read_bytes()
+    pos, idat, w = 8, [], 0
+    while pos < len(buf):
+        length, tag = struct.unpack(">I4s", buf[pos:pos + 8])
+        if tag == b"IHDR":
+            w = struct.unpack(">I", buf[pos + 8:pos + 12])[0]
+        elif tag == b"IDAT":
+            idat.append(buf[pos + 8:pos + 8 + length])
+        pos += 12 + length
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(-1, 1 + 3 * w)
+    return np.bincount(raw[:, 0], minlength=5)
+
+
+def refine_results(rng, T, N, S, scale_errs):
+    """A results dict as tests/test_refine.py builds one, at (T, N, S) and
+    HT x WD: a flat scene at depth 5, identity poses, visibility and static
+    scores at 1, the depth maps off by a scale per frame."""
+    xy = np.stack([rng.uniform(5, WD - 5, (T, N, S)), rng.uniform(5, HT - 5, (T, N, S))], -1)
+    disp = np.full((T, N, S, 1), 1.0 / REFINE_GT_DEPTH)
+    dmaps = np.full((T, HT, WD, 1), REFINE_GT_DEPTH) * np.asarray(scale_errs).reshape(T, 1, 1, 1)
+    return {
+        "cams_T_world": np.tile(np.eye(4, dtype=np.float32), (T, 1, 1)),
+        "intrinsics": np.tile(INTR, (T, 1)),
+        "trajs_2d_disp": np.concatenate([xy, disp], -1).astype(np.float32),
+        "trajs_static": np.ones((T, N, S), np.float32),
+        "trajs_vis": np.ones((T, N, S), np.float32),
+        "grid_query_frames": np.arange(T),
+        "dmaps": dmaps.astype(np.float32),
+        "dmaps_gt": np.full((T, HT, WD, 1), REFINE_GT_DEPTH, np.float32),
+    }
+
+
+def phase_refine(dev, T, N, S, profile=False):
+    """Phase 7b: stage-3 numerics at the pipeline's shape. Eight Adam steps
+    of every loss in float64 on the card against the CPU, within 10x a
+    witness (the CPU run of inputs moved by one float64 rounding) and at
+    least 1e-5: in float32 the first steps' signs sit on rounding (Adam
+    scales a gradient of rounding noise to the full step), so its witness
+    is as large as the steps and the limit could not fail; in float64 the
+    witness falls to ~1e-9 and the limit is 1e-5 against steps of ~1e-2.
+    Then tests/test_refine.py::test_scale_recovery's configuration for 200
+    steps on the card in float32, the production dtype, held to that test's
+    bar. With `profile`, also device time by kernel over 5 steps of every
+    loss in float32."""
+    from batrack_tpu_torch.refine import (
+        build_refine_data,
+        global_alignment_loop,
+        init_params,
+        scaled_dmaps,
+        total_loss,
+    )
+    from batrack_tpu_torch.utils.config import RefineConfig
+    from batrack_tpu_torch.utils.evaluation import eval_depth_maps
+
+    rng = np.random.default_rng(0)
+    res = refine_results(rng, T, N, S, np.linspace(0.8, 1.25, T))
+    f64 = np.float64
+    jit = {k: np.asarray(v, f64) if k in ("trajs_2d_disp", "dmaps") else v
+           for k, v in res.items()}
+    for k in ("trajs_2d_disp", "dmaps"):
+        jit[k] = jit[k] * (1 + np.finfo(f64).eps * rng.uniform(-1, 1, res[k].shape))
+    cfg = RefineConfig(niter=REFINE_CHECK_STEPS)  # grid 10, every loss, pose free
+
+    def run(results, device):
+        data = build_refine_data(results, align_depth=True, dtype=f64, device=device)
+        params = init_params(data, cfg.grid_size, dtype=f64)
+        return global_alignment_loop(params, data, (HT, WD), cfg)[0]
+
+    log(f"[refine] stage 3 at T={T}, N={N}, S={S}, {HT}x{WD}, grid {cfg.grid_size}: "
+        f"{REFINE_CHECK_STEPS} Adam steps of every loss in float64, card against CPU")
+    run(res, dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = run(res, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    cpu = run(res, "cpu")
+    cpu_s = time.perf_counter() - t0
+    wit = run(jit, "cpu")
+    got = {k: max_err(getattr(card, k).cpu(), getattr(cpu, k)) for k in card._fields}
+    witness = {k: max_err(getattr(wit, k), getattr(cpu, k)) for k in card._fields}
+    init = init_params(build_refine_data(res, align_depth=True, dtype=f64, device="cpu"),
+                       cfg.grid_size, dtype=f64)
+    moved = {k: max_err(getattr(cpu, k), getattr(init, k)) for k in card._fields}
+    log(f"  float64: card {1e3 * card_s / REFINE_CHECK_STEPS:.2f} ms per step incl. data "
+        f"set-up, peak device memory {peak:.2f} GiB; CPU {cpu_s / REFINE_CHECK_STEPS:.2f} s "
+        f"per step; largest move from init {json.dumps(moved)}")
+    log(f"  card vs CPU {json.dumps(got)}; witness {json.dumps(witness)}")
+    for k in card._fields:
+        check(f"stage 3 after {REFINE_CHECK_STEPS} steps, {k}", got[k],
+              max(TOL["ba_floor"], TOL["ba_witness_factor"] * witness[k]))
+    if profile:
+        data = build_refine_data(res, align_depth=True, device=dev)
+        five = dataclasses.replace(cfg, niter=5)
+        profile_device("stage 3, 5 Adam steps of every loss", lambda: global_alignment_loop(
+            init_params(data, five.grid_size), data, (HT, WD), five))
+
+    res = refine_results(rng, T, N, S, np.linspace(0.6, 1.8, T))
+    data = build_refine_data(res, align_depth=False, device=dev)
+    rcfg = RefineConfig(grid_size=10, niter=200, lr=0.08, spatial_loss=5.0, inter_frame_loss=0.0,
+                        pts_3d_loss=0.0, cam_smooth_vec_loss=0.0, scale_smoothness_loss=0.01,
+                        fixed_pose=True, fixed_K=True)
+    params = init_params(data, rcfg.grid_size)
+    loss0 = float(total_loss(params, data, (HT, WD), rcfg)[0])
+    params, loss1 = global_alignment_loop(params, data, (HT, WD), rcfg)
+    gt = res["dmaps_gt"][..., 0]
+    before = eval_depth_maps(gt, data.dmaps.cpu().numpy(), scaling="none")[0]
+    after = eval_depth_maps(gt, scaled_dmaps(params, data).cpu().numpy(), scaling="none")[0]
+    log(f"  scale recovery, 200 steps on the card: loss {loss0:.6f} -> {loss1:.6f}, abs_rel "
+        f"{before:.4f} -> {after:.4f} (bar: loss x0.3, abs_rel x0.25)")
+    if not (loss1 < 0.3 * loss0 and after < 0.25 * before):
+        raise AssertionError("stage 3 did not recover the per-frame scales")
+
+
+DECODE_VARIANTS = ("filtered", "unfiltered", "filtered_threads", "filtered_inline")
+
+
+def decode_inline(fn, jobs, workers=0):
+    """streams._ahead without look-ahead: each job runs when it is read."""
+    for job in jobs:
+        yield fn(*job)
+
+
+def decode_threaded(fn, jobs, workers=2):
+    """streams._ahead's look-ahead on a pool of `workers` threads."""
+    from batrack_tpu_torch.data.streams import DECODE_AHEAD
+
+    with ThreadPoolExecutor(workers) as pool:
+        pending = deque()
+        for job in jobs:
+            pending.append(pool.submit(fn, *job))
+            if len(pending) > DECODE_AHEAD:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+
+def main_decode_ab(rounds: int) -> int:
+    """chip_smoke.py --decode-ab: the A/B described in the module docstring."""
+    import batrack_tpu_torch.data.streams as streams
+    import batrack_tpu_torch.slam as slam_pkg
+    from batrack_tpu_torch.cli import run_slam
+    from batrack_tpu_torch.data import png
+    from batrack_tpu_torch.utils.synth import make_scene
+
+    lines = []
+
+    def record(obj):
+        print(json.dumps(obj), flush=True)
+        lines.append(obj)
+
+    config = Path(__file__).resolve().parent / "configs" / "davis_demo.yaml"
+    images, depths, poses_gt = make_scene(FRAMES, HT, WD, INTR)
+    with tempfile.TemporaryDirectory(prefix="batrack_decode_ab_") as tmp:
+        root = Path(tmp)
+        _, frames = write_sintel_dataset(root / "filtered", images, depths, poses_gt)
+        shutil.copytree(root / "filtered", root / "unfiltered")
+        for t, path in enumerate(sorted((root / "unfiltered" / "rgb").glob("*.png"))):
+            png.write_png(path, frames[t], filters=0)
+        data = {v: root / ("unfiltered" if v == "unfiltered" else "filtered")
+                for v in DECODE_VARIANTS}
+        for name in ("filtered", "unfiltered"):
+            pngs = sorted((root / name / "rgb").glob("*.png"))
+            t0 = time.perf_counter()
+            for t, path in enumerate(pngs):
+                if not np.array_equal(png.read_image(path), frames[t]):
+                    raise AssertionError(f"{path} decodes to another array")
+            record({"dataset": name, "row_filters": sum(map(png_row_filters, pngs)).tolist(),
+                    "decode_ms_per_frame": 1e3 * (time.perf_counter() - t0) / len(pngs)})
+
+        made = []
+        shipped, shipped_ahead = slam_pkg.BATrack, streams._ahead
+
+        class Observed(shipped):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        def run(variant, label):
+            d, savedir = data[variant], root / "out"
+            argv = ["--config", str(config), "model.init_dir=", f"data.imagedir={d / 'rgb'}",
+                    f"data.depthdir={d / 'depth'}", f"data.depthdir_gt={d / 'depth_gt'}",
+                    f"data.calib={d / 'cam'}", f"data.gt_traj={d / 'cam'}",
+                    "data.traj_format=sintel", f"data.savedir={savedir}", "data.name=synth"]
+            streams._ahead = {"filtered_threads": decode_threaded,
+                              "filtered_inline": decode_inline}.get(variant, shipped_ahead)
+            slam_pkg.BATrack = Observed
+            made.clear()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = run_slam.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                slam_pkg.BATrack, streams._ahead = shipped, shipped_ahead
+            if rc != 0 or len(made) != 1:
+                raise AssertionError(f"run_slam returned {rc}")
+            shutil.rmtree(savedir)
+            record({"run": label, "variant": variant, "fps": FRAMES / wall, "wall_s": wall,
+                    "stage_ms": {k: round(v, 3) for k, v in made[0].timer.ms_per_call().items()}})
+
+        run("filtered", "warm-up")
+        for r in range(rounds):
+            order = DECODE_VARIANTS if r % 2 == 0 else DECODE_VARIANTS[::-1]
+            for v in order[r % 4:] + order[:r % 4]:
+                run(v, f"round {r}")
+
+    runs = [ln for ln in lines if ln.get("run", "").startswith("round")]
+    summary = {}
+    for v in DECODE_VARIANTS:
+        mine = [ln for ln in runs if ln["variant"] == v]
+        summary[v] = {"fps_median": statistics.median(ln["fps"] for ln in mine),
+                      "fps_all": [round(ln["fps"], 3) for ln in mine],
+                      "stage_ms_median": {k: statistics.median(ln["stage_ms"][k] for ln in mine)
+                                          for k in mine[0]["stage_ms"]}}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    record({"summary": summary, "card": smi})
+    out = Path(__file__).resolve().parent / "chiprun_out" / "decode_ab.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text("\n".join(json.dumps(ln) for ln in lines) + "\n")
+    print(smi)
+    return 0
+
+
 def main_ranks() -> int:
     """chip_smoke.py --ranks under torchrun: phase_ranks on every rank."""
     import torch.distributed as dist
@@ -1180,16 +1657,22 @@ def main_ranks() -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace two SLAM frames with torch.profiler")
+                        help="also trace two SLAM frames and five stage-3 steps with "
+                             "torch.profiler")
     parser.add_argument("--ranks", action="store_true",
                         help="run only the multi-device path, one process per GPU: "
                              "torchrun --standalone --nproc_per_node N chip_smoke.py --ranks")
+    parser.add_argument("--decode-ab", type=int, metavar="ROUNDS", default=0,
+                        help="run only the A/B of the frame decode through the CLI, "
+                             "ROUNDS rounds of four runs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU", file=sys.stderr)
         return 1
     if args.ranks:
         return main_ranks()
+    if args.decode_ab:
+        return main_decode_ab(args.decode_ab)
     from batrack_tpu_torch.ops import cuda_build
     from batrack_tpu_torch.utils.config import Config
     from batrack_tpu_torch.utils.synth import make_scene
@@ -1237,6 +1720,8 @@ def main() -> int:
     launches, fps, poses_at_stage = phase_slam(cfg, images, depths, dev, args.profile)
     ba = phase_ba(cfg, images, depths, dev)
     mesh_launches = phase_mesh(cfg, images, depths, dev, fps, poses_at_stage, ba, tin, gen)
+    phase_pipeline(dev)
+    phase_refine(dev, FRAMES, cfg.slam.PATCHES_PER_FRAME, cfg.slam.S_local, args.profile)
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]
