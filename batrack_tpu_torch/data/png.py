@@ -188,3 +188,15 @@ def read_image(path) -> np.ndarray:
     raise NotImplementedError(
         f"{path}: only PNG frames are readable here (no JPEG decoder without libjpeg); "
         "convert the frames to PNG")
+
+
+def image_size(path):
+    """(H, W) of an image file from its PNG header. PNG only, as read_image."""
+    if not str(path).lower().endswith(".png"):
+        read_image(path)
+    with open(path, "rb") as fh:
+        head = fh.read(24)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w

@@ -5,11 +5,16 @@ batrack_tpu/ops/sampling.py, same conventions):
     image, weights from the *unclamped* coordinates;
   * patchify: integer window [floor(c) - r, floor(c) + r + 1], taps clamped
     ("border") or zeroed ("zeros") outside the image, then a 2x2 bilinear
-    blend of the (2r+2)^2 window down to (2r+1)^2.
+    blend of the (2r+2)^2 window down to (2r+1)^2;
+  * resize_linear: jax.image.resize(..., method="linear") as two products
+    with (n_out, n_in) weight matrices.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -174,3 +179,36 @@ def avg_pool2d(x: torch.Tensor, k: int, stride: int | None = None) -> torch.Tens
     lead = x.shape[:-2]
     y = F.avg_pool2d(x.reshape((-1, 1) + x.shape[-2:]), k, stride)
     return y.reshape(lead + y.shape[-2:])
+
+
+@functools.lru_cache(maxsize=64)
+def linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 weights of jax.image.resize(method="linear")
+    along one axis, as jax.image.scale_and_translate computes them: a
+    triangle kernel at the half-pixel source position, widened by
+    n_in / n_out when downscaling (antialias), weights normalised over the
+    taps inside the input, rows of samples outside [-0.5, n_in - 0.5]
+    zeroed. Computed in float32 with the same operations."""
+    f32 = np.float32
+    inv = f32(1.0 / (float(n_out) / n_in))
+    kernel_scale = max(inv, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.0) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= f32(n_in - 0.5))
+    return np.ascontiguousarray(np.where(inside[None, :], w, f32(0.0)).T.astype(f32))
+
+
+def resize_linear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
+    """jax.image.resize(x, ..., method="linear") of an NHWC tensor to
+    out_hw. An axis whose size does not change is left as it is."""
+    for ax, n_out in zip((1, 2), out_hw):
+        n_in = x.shape[ax]
+        if n_in == n_out:
+            continue
+        w = torch.from_numpy(linear_resize_matrix(n_in, n_out)).to(x.device, x.dtype)
+        x = torch.movedim(torch.tensordot(w, x, dims=([1], [ax])), 0, ax)
+    return x

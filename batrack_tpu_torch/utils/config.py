@@ -243,17 +243,29 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 @contextlib.contextmanager
+def _tf32(allowed: bool):
+    """Set TF32 for CUDA matmuls and cuDNN convolutions, restoring the
+    previous settings on exit."""
+    mm, cd = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allowed
+    torch.backends.cudnn.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = cd
+
+
 def full_fp32():
     """Turn TF32 off for CUDA matmuls and cuDNN convolutions.
 
     The JAX package pins Precision.HIGHEST in geometry, BA and the
     correlation contraction; TF32 keeps about three decimal digits, so those
     stages (and float32 parity runs) execute inside this context."""
-    mm, cd = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
+    return _tf32(False)
+
+
+def allow_tf32():
+    """Allow TF32 for CUDA matmuls and cuDNN convolutions: the stage-1
+    networks run so."""
+    return _tf32(True)

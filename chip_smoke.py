@@ -55,7 +55,22 @@ Phases, each of which fails the run when it fails:
    steps of tests/test_refine.py::test_scale_recovery's configuration in
    float32 held to that test's bar. Prints frames/s, decode ms, the CLI's
    own (unsynchronised) stage ms, ms per Adam step and peak memory; with
-   --profile, also device time by kernel over 5 stage-3 steps.
+   --profile, also device time by kernel over 5 stage-3 steps;
+8. the whole demo chain (scripts/demo/*.sh) through the port's CLIs on
+   phase 7's 40 frames laid out as DATA/<scene>/*.png: DepthAnythingV2 and
+   UniDepthV2 at ViT-L width (weights from a seed, written as the released
+   files: .pth and model.safetensors); one forward of each on the card in
+   full float32 against the CPU's, within 10x a witness (the CPU forward of
+   the input moved by one float32 rounding) and at least 1e-5 relative,
+   beside the TF32 forward's gap and both times; `cli.infer_depth`,
+   `cli.infer_metric_depth` and `cli.align_depth` (every kernel counter
+   must stay 0), the artifacts' schema; `cli.run_slam` at davis_demo on the
+   aligned priors (K1 4 and K2 24 per append), `cli.run_refine` at
+   run_dense.sh's defaults (grid 12, 300 steps) and `cli.vis_results` (rc 1
+   only without rerun-sdk, with its summary). Prints per network ms per
+   forward (CUDA events), the CLI's wall time per frame, tokens, TFLOP per
+   forward (torch.utils.flop_counter) and TFLOP/s, and peak memory; with
+   --profile, device time by kernel over one TF32 forward of each.
 
 With --ranks, under torchrun (one process per GPU), it runs only the
 multi-device path at the group's world size: a tracker forward held
@@ -113,6 +128,8 @@ import contextlib
 import copy
 import dataclasses
 import hashlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -1514,6 +1531,321 @@ def phase_refine(dev, T, N, S, profile=False):
         raise AssertionError("stage 3 did not recover the per-frame scales")
 
 
+# ---------------------------------------------------------------- the demo chain
+DEMO_SCENE = "synth"
+STAGE1_ARCH = "vitl"
+STAGE1_SEED = 0
+STAGE1_CHECK_FACTOR, STAGE1_CHECK_FLOOR = 10.0, 1e-5  # x witness, relative
+DENSE_GRID, DENSE_NITER = 12, 300                       # scripts/demo/run_dense.sh defaults
+
+
+def all_launches():
+    """Every kernel counter of the port."""
+    from batrack_tpu_torch.ops.attention import (flash_attention, fused_qkv_attention,
+                                                 vmem_attention)
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+
+    return {"corr_sample": corr_sample.launches, "corr_sample_mxu": corr_sample.mxu_launches,
+            "corr_sample_int8": corr_sample.int8_launches,
+            "fused_qkv_attention": fused_qkv_attention.launches,
+            "fused_qkv_attention_kv": fused_qkv_attention.kv_launches,
+            "vmem_attention": vmem_attention.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def zero_all_launches():
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+
+    corr_sample.launches = fused_qkv_attention.launches = fused_qkv_attention.kv_launches = 0
+    zero_off_path()
+
+
+def stage1_networks():
+    """DepthAnythingV2 and UniDepthV2 at ViT-L width on the CPU, weights from
+    a seed. DA2's last bias is set to 1: random weights otherwise leave every
+    disparity at the final ReLU's zero, and the alignment would fit a
+    constant."""
+    from batrack_tpu_torch.depth import dpt, unidepth
+
+    torch.manual_seed(STAGE1_SEED)
+    da2 = dpt.DepthAnythingV2(STAGE1_ARCH).eval()
+    with torch.no_grad():
+        da2.depth_head.scratch.output_conv2[2].bias.fill_(1.0)
+    ud = unidepth.UniDepthV2(STAGE1_ARCH).eval()
+    return da2, ud
+
+
+@contextlib.contextmanager
+def timed_forward(cls, events):
+    """Record a pair of CUDA events around every forward of `cls`."""
+    forward = cls.forward
+
+    def run(self, *a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(self, *a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    cls.forward = run
+    try:
+        yield
+    finally:
+        cls.forward = forward
+
+
+def forward_flops(model, *inputs):
+    """FLOPs of one forward as torch.utils.flop_counter counts them
+    (matmuls, convolutions, attention)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(*inputs)
+    return counter.get_total_flops()
+
+
+def stage1_inputs(frame):
+    """Each network's input for one uint8 frame, as its infer function makes it:
+    DA2's preprocess (518x686 at 480x640) and UniDepth's normalised,
+    linearly resized image at the 2400-patch bound (588x784)."""
+    from batrack_tpu_torch.depth import dpt, unidepth
+    from batrack_tpu_torch.ops.sampling import resize_linear
+
+    (h, w), _ = unidepth._infer_shape(frame.shape[:2])
+    x = (frame.astype(np.float32) / 255.0 - dpt.IMAGENET_MEAN) / dpt.IMAGENET_STD
+    return (torch.from_numpy(dpt.preprocess(frame)),
+            resize_linear(torch.from_numpy(x[None]), (h, w)))
+
+
+def network_outputs(out):
+    return {"disparity": out} if isinstance(out, torch.Tensor) else {"depth": out["depth"],
+                                                                     "K": out["K"]}
+
+
+def check_network_on_card(name, model, x, dev, profile=False):
+    """One full-width forward on the card in full float32 against the CPU's,
+    within 10x a witness (the CPU forward of x moved by one float32
+    rounding) and at least 1e-5, relative to the largest output; then the
+    same forward with TF32, its relative gap from full float32, and the two
+    times. With `profile`, device time by kernel over one TF32 forward."""
+    from batrack_tpu_torch.utils.config import allow_tf32, full_fp32
+
+    card = copy.deepcopy(model).to(dev)
+    xd = x.to(dev)
+    with torch.no_grad():
+        with full_fp32():
+            f32 = {k: v.cpu() for k, v in network_outputs(card(xd)).items()}
+            ms_f32 = cuda_ms(lambda: card(xd), reps=3, warmup=1)
+        with allow_tf32():
+            tf32 = {k: v.cpu() for k, v in network_outputs(card(xd)).items()}
+            ms_tf32 = cuda_ms(lambda: card(xd), reps=3, warmup=1)
+            if profile:
+                profile_device(f"{name} forward, TF32", lambda: card(xd))
+    del card
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(1)
+    u = torch.rand(x.shape, generator=gen) * 2 - 1
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = network_outputs(model(x))
+        cpu_s = time.perf_counter() - t0
+        wit = network_outputs(model(x * (1 + torch.finfo(torch.float32).eps * u)))
+    gaps = {}
+    for k in cpu:
+        scale = cpu[k].abs().max().item()
+        got, witness = max_err(f32[k], cpu[k]) / scale, max_err(wit[k], cpu[k]) / scale
+        gap = gaps[k] = max_err(tf32[k], f32[k]) / scale
+        log(f"  {name} {k} {tuple(cpu[k].shape)}: card float32 vs CPU {got:.3e} relative "
+            f"(witness {witness:.3e}); TF32 vs float32 on the card {gap:.3e}")
+        check(f"{name} {k}, card vs CPU (relative)", got,
+              max(STAGE1_CHECK_FLOOR, STAGE1_CHECK_FACTOR * witness))
+        if not torch.isfinite(tf32[k]).all():
+            raise AssertionError(f"{name} {k}: the TF32 forward is not finite")
+    log(f"  {name} forward: {ms_f32:.2f} ms float32, {ms_tf32:.2f} ms TF32 on the card "
+        f"(CUDA events, 3 calls); {cpu_s:.1f} s on the CPU")
+    return {"ms_f32": ms_f32, "ms_tf32": ms_tf32, "tf32_gap": gaps}
+
+
+def run_cli(cli, argv, cls=None):
+    """cli.main(argv) timed: (rc, wall s, forward ms per call by CUDA events
+    around cls.forward, peak device GiB, stdout)."""
+    events, out = [], io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if cls is not None:
+            stack.enter_context(timed_forward(cls, events))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [s.elapsed_time(e) for s, e in events]
+    return rc, wall, ms, torch.cuda.max_memory_allocated() / 2 ** 30, out.getvalue()
+
+
+def phase_demo(dev, profile=False):
+    """Phase 8: the demo chain through the port's CLIs on phase 7's scene,
+    laid out as scripts/demo/*.sh expect: the stage-1 networks at ViT-L
+    width (seeded weights written as the released files: DA2 .pth, UniDepth
+    .safetensors) held card against CPU, then infer_depth,
+    infer_metric_depth and align_depth (no kernel may launch), run_slam at
+    davis_demo on the aligned priors (K1 and K2 counted: 4 and 24 per
+    append), run_refine at run_dense.sh's defaults and vis_results."""
+    import batrack_tpu_torch.slam as slam_pkg
+    from batrack_tpu_torch.cli import (align_depth, infer_depth, infer_metric_depth,
+                                       run_refine, run_slam, vis_results)
+    from batrack_tpu_torch.data.png import write_png
+    from batrack_tpu_torch.depth import dpt, unidepth
+    from batrack_tpu_torch.utils.config import load_config
+    from batrack_tpu_torch.utils.synth import make_scene
+    from batrack_tpu_torch.utils.tensorfile import write_safetensors
+
+    config = Path(__file__).resolve().parent / "configs" / "davis_demo.yaml"
+    cfg = load_config(str(config))
+    images, _, _ = make_scene(FRAMES, HT, WD, INTR)
+    frames = np.clip(images, 0, 255).astype(np.uint8)
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="batrack_demo_") as tmp:
+        root = Path(tmp)
+        img_dir = root / "davis" / DEMO_SCENE
+        img_dir.mkdir(parents=True)
+        for t in range(FRAMES):
+            write_png(img_dir / f"{t:05d}.png", frames[t])
+        t0 = time.perf_counter()
+        da2, ud = stage1_networks()
+        da2_ckpt = root / f"depth_anything_v2_{STAGE1_ARCH}.pth"
+        ud_ckpt = root / "model.safetensors"
+        torch.save(da2.state_dict(), da2_ckpt)
+        write_safetensors(ud_ckpt, ud.state_dict())
+        n_params = {"DA2": sum(p.numel() for p in da2.parameters()),
+                    "UniDepthV2": sum(p.numel() for p in ud.parameters())}
+        log(f"[demo] stage-1 networks at {STAGE1_ARCH} width from seed {STAGE1_SEED} "
+            f"({n_params['DA2'] / 1e6:.1f} M and {n_params['UniDepthV2'] / 1e6:.1f} M parameters), "
+            f"written as {da2_ckpt.name} ({da2_ckpt.stat().st_size / 2 ** 30:.2f} GiB) and "
+            f"{ud_ckpt.name} ({ud_ckpt.stat().st_size / 2 ** 30:.2f} GiB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        x_da2, x_ud = stage1_inputs(frames[0])
+        for name, model, x in (("DA2", da2, x_da2), ("UniDepthV2", ud, x_ud)):
+            tokens = (x.shape[1] // dpt.PATCH) * (x.shape[2] // dpt.PATCH) + 1
+            card = copy.deepcopy(model).to(dev)
+            flops = forward_flops(card, x.to(dev))
+            del card
+            stats[name] = {"tokens": tokens, "tflop": flops / 1e12, "input": tuple(x.shape[1:3]),
+                           **check_network_on_card(name, model, x, dev, profile)}
+            log(f"  {name}: input {x.shape[1]}x{x.shape[2]}, {tokens} tokens, "
+                f"{flops / 1e12:.3f} TFLOP per forward (torch.utils.flop_counter)")
+        del da2, ud, x_da2, x_ud
+
+        depth_dir = root / "Monodepth"
+        zero_all_launches()
+        runs = (("infer_depth", infer_depth, dpt.DepthAnythingV2, "DA2",
+                 ["--encoder", STAGE1_ARCH, "--checkpoint", str(da2_ckpt), "--img_dir", str(img_dir),
+                  "--out_dir", str(depth_dir / "depthAny_disp" / DEMO_SCENE), "--device", str(dev)]),
+                ("infer_metric_depth", infer_metric_depth, unidepth.UniDepthV2, "UniDepthV2",
+                 ["--arch", STAGE1_ARCH, "--checkpoint", str(ud_ckpt), "--img_dir", str(img_dir),
+                  "--out_dir", str(depth_dir / "unidepthv2" / DEMO_SCENE), "--device", str(dev)]))
+        for cli_name, cli, cls, name, argv in runs:
+            rc, wall, ms, peak, _ = run_cli(cli, argv, cls)
+            if rc != 0 or len(ms) != FRAMES:
+                raise AssertionError(f"{cli_name} returned {rc} after {len(ms)} forwards")
+            st = stats[name]
+            steady = statistics.median(ms[1:])
+            st.update(ms=steady, first_ms=ms[0], cli_s_per_frame=wall / FRAMES, peak_gib=peak,
+                      tflops=st["tflop"] / (steady / 1e3))
+            log(f"  {cli_name} ({STAGE1_ARCH}, TF32): {steady:.2f} ms per forward (median of "
+                f"{FRAMES - 1} after the first, {ms[0]:.1f} ms; CUDA events around the forward), "
+                f"{st['tflops']:.1f} TFLOP/s achieved; whole CLI {wall:.2f} s for {FRAMES} "
+                f"frames, {1e3 * wall / FRAMES:.1f} ms per frame (load, decode, preprocess, "
+                f"forward, .npy/.npz); peak device memory {peak:.2f} GiB")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = align_depth.main(["--data_dir", str(root / "davis"), "--depth_dir",
+                                   str(depth_dir), "--save_name", "unidepth_da"])
+        log(f"  align_depth: {time.perf_counter() - t0:.2f} s (numpy, host)")
+        stage1 = all_launches()
+        if rc != 0 or any(stage1.values()):
+            raise AssertionError(f"stage 1: align_depth returned {rc}; launches {stage1} "
+                                 "(no kernel may launch)")
+        log(f"  stage-1 kernel launches {json.dumps(stage1)} (all must be 0)")
+
+        disps = sorted((depth_dir / "depthAny_disp" / DEMO_SCENE).glob("*.npy"))
+        metric = sorted((depth_dir / "unidepthv2" / DEMO_SCENE).glob("*.npz"))
+        aligned = sorted((depth_dir / "unidepth_da" / DEMO_SCENE).glob("*.npy"))
+        Ks = sorted((depth_dir / "unidepth_da_intrinsics" / DEMO_SCENE).glob("*.npy"))
+        d0, m0, a0 = np.load(disps[0]), np.load(metric[0]), np.load(aligned[0])
+        if (len(disps) != FRAMES or len(metric) != FRAMES or len(aligned) != FRAMES
+                or len(Ks) != FRAMES or np.load(Ks[0]).shape != (3, 3)
+                or d0.shape != (HT, WD) or not np.isfinite(d0).all() or d0.min() < 0
+                or set(m0.files) != {"depth", "fov", "intrinsics"}
+                or m0["depth"].shape != (HT, WD) or not (m0["depth"] > 0).all()
+                or m0["intrinsics"].shape != (3, 3) or a0.shape != (HT, WD)
+                or not np.isfinite(a0).all()):
+            raise AssertionError("stage-1 artifacts are not in the stage-2 input schema")
+        log(f"  artifacts: {len(disps)} disparities {d0.shape} [{d0.min():.3f}, {d0.max():.3f}], "
+            f"{len(metric)} metric .npz (depth [{m0['depth'].min():.2f}, "
+            f"{m0['depth'].max():.2f}] m, fov {float(m0['fov']):.1f} deg), {len(aligned)} "
+            f"aligned depths [{a0.min():.3f}, {a0.max():.3f}] and shared K")
+
+        savedir, made = root / "out", []
+
+        class Observed(slam_pkg.BATrack):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        argv = ["--config", str(config), "--device", str(dev), "model.init_dir=",
+                f"data.imagedir={img_dir}", f"data.savedir={savedir}",
+                f"data.depthdir={depth_dir / 'unidepth_da' / DEMO_SCENE}",
+                f"data.depthdir_gt={depth_dir / 'unidepth_da' / DEMO_SCENE}",
+                f"data.calib={depth_dir / 'unidepth_da_intrinsics' / DEMO_SCENE}",
+                f"data.name={DEMO_SCENE}", "save_trajectory=true", "save_plot=true",
+                "save_results=true"]
+        zero_all_launches()
+        with patched(slam_pkg, "BATrack", Observed):
+            rc, wall, _, peak, _ = run_cli(run_slam, argv)
+        launches = all_launches()
+        appends = made[0].append_count if made else 0
+        log(f"  run_slam on the aligned priors, {FRAMES} frames: {wall:.2f} s "
+            f"({FRAMES / wall:.3f} frames/s), launches {json.dumps(launches)} over {appends} "
+            f"appends, peak device memory {peak:.2f} GiB")
+        if (rc != 0 or appends != len(range(0, FRAMES, cfg.slam.kf_stride))
+                or launches["corr_sample"] != CORR_LAUNCHES * appends
+                or launches["fused_qkv_attention"] != SPACE_LAUNCHES * appends):
+            raise AssertionError(f"run_slam returned {rc}; K1 and K2 launched {launches} over "
+                                 f"{appends} appends, not {CORR_LAUNCHES} and {SPACE_LAUNCHES} "
+                                 "per append")
+        off_path_launches()
+        with open(savedir / DEMO_SCENE / "results.pkl", "rb") as f:
+            res = pickle.load(f)
+        if res["cams_T_world"].shape != (FRAMES, 4, 4) or not np.isfinite(res["cams_T_world"]).all():
+            raise AssertionError("run_slam's results.pkl has no finite trajectory of the frames")
+
+        rc, wall, _, peak, _ = run_cli(run_refine, [
+            "--result_dir", str(savedir), "--grid_size", str(DENSE_GRID), "--scenes", DEMO_SCENE,
+            "--niter", str(DENSE_NITER), "--device", str(dev)])
+        refined = savedir / DEMO_SCENE / "results_refined.pkl"
+        with open(refined, "rb") as f:
+            dense = pickle.load(f)
+        if (rc != 0 or dense["dmaps_scaled"].shape != (FRAMES, HT, WD, 1)
+                or not np.isfinite(dense["dmaps_scaled"]).all()):
+            raise AssertionError("run_refine wrote no finite dmaps_scaled of the frames' shape")
+        log(f"  run_refine (grid {DENSE_GRID}, {DENSE_NITER} steps): {wall:.2f} s, peak device "
+            f"memory {peak:.2f} GiB")
+
+        rc, _, _, _, out = run_cli(vis_results, ["--result_path", str(refined)])
+        rerun_absent = importlib.util.find_spec("rerun") is None
+        if not ((rc == 0 or (rc == 1 and rerun_absent))
+                and f"cams_T_world: ({FRAMES}, 4, 4)" in out):
+            raise AssertionError(f"vis_results returned {rc} (rerun absent: {rerun_absent}):\n{out}")
+        log(f"  vis_results: rc {rc} (rerun-sdk {'absent' if rerun_absent else 'present'}); "
+            + "; ".join(ln.strip() for ln in out.splitlines() if ln.strip()))
+    return stats
+
+
 DECODE_VARIANTS = ("filtered", "unfiltered", "filtered_threads", "filtered_inline")
 
 
@@ -1657,8 +1989,8 @@ def main_ranks() -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace two SLAM frames and five stage-3 steps with "
-                             "torch.profiler")
+                        help="also trace two SLAM frames, five stage-3 steps and one forward "
+                             "of each stage-1 network with torch.profiler")
     parser.add_argument("--ranks", action="store_true",
                         help="run only the multi-device path, one process per GPU: "
                              "torchrun --standalone --nproc_per_node N chip_smoke.py --ranks")
@@ -1722,6 +2054,8 @@ def main() -> int:
     mesh_launches = phase_mesh(cfg, images, depths, dev, fps, poses_at_stage, ba, tin, gen)
     phase_pipeline(dev)
     phase_refine(dev, FRAMES, cfg.slam.PATCHES_PER_FRAME, cfg.slam.S_local, args.profile)
+    stage1 = phase_demo(dev, args.profile)
+    log(f"[stage 1] {json.dumps(stage1)}")
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]

@@ -34,20 +34,25 @@ def _submodules():
 
 def test_import_leaves_jax_and_batrack_tpu_out():
     """Importing every module loads no JAX, Flax or batrack_tpu module, and
-    none of the optional libraries the card's machine lacks (scipy, cv2,
-    PIL, matplotlib)."""
+    none of the optional libraries the card's machine lacks or the port does
+    without (scipy, cv2, PIL, matplotlib, safetensors)."""
     assert {"batrack_tpu_torch.parallel.mesh", "batrack_tpu_torch.parallel.shard_kernels",
             "batrack_tpu_torch.parallel.sharded_slot_ba", "batrack_tpu_torch.cli.run_slam",
             "batrack_tpu_torch.cli.run_refine", "batrack_tpu_torch.cli.eval_depth",
             "batrack_tpu_torch.data.streams", "batrack_tpu_torch.data.png",
             "batrack_tpu_torch.refine.refine_net", "batrack_tpu_torch.refine.trainer",
-            "batrack_tpu_torch.utils.evaluation", "batrack_tpu_torch.utils.traj"
+            "batrack_tpu_torch.utils.evaluation", "batrack_tpu_torch.utils.traj",
+            "batrack_tpu_torch.depth.dpt", "batrack_tpu_torch.depth.unidepth",
+            "batrack_tpu_torch.depth.align", "batrack_tpu_torch.depth.cvresize",
+            "batrack_tpu_torch.cli.infer_depth", "batrack_tpu_torch.cli.infer_metric_depth",
+            "batrack_tpu_torch.cli.align_depth", "batrack_tpu_torch.cli.vis_results",
+            "batrack_tpu_torch.utils.visualizer", "batrack_tpu_torch.utils.tensorfile",
             } <= set(_submodules())
     code = (
         "import importlib, sys\n"
         f"for m in {_submodules()!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-        "'batrack_tpu', 'scipy', 'cv2', 'PIL', 'matplotlib')]\n"
+        "'batrack_tpu', 'scipy', 'cv2', 'PIL', 'matplotlib', 'safetensors')]\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -75,11 +80,12 @@ def test_sources_name_no_jax_flax_or_batrack_tpu():
 
 
 def test_sources_import_no_optional_library_at_module_level():
-    """scipy, cv2, PIL and matplotlib are not on the card's machine: no
-    module of the package, nor chip_smoke.py, imports one at module level
-    (utils/traj.py imports matplotlib inside plot_trajectory, which skips
-    the plot without it)."""
-    pattern = re.compile(r"^(import|from)\s+(scipy|cv2|PIL|matplotlib)\b")
+    """scipy, cv2, PIL and matplotlib are not on the card's machine, and
+    safetensors is not promised there: no module of the package, nor
+    chip_smoke.py, imports one at module level (utils/traj.py imports
+    matplotlib inside plot_trajectory, which skips the plot without it), and
+    none imports cv2, PIL, scipy or safetensors anywhere."""
+    pattern = re.compile(r"^(import|from)\s+(scipy|cv2|PIL|matplotlib|safetensors)\b")
     root = PKG.parent
     files = sorted(PKG.rglob("*.py")) + [root / "chip_smoke.py"]
     assert PKG / "cli" / "run_slam.py" in files and PKG / "refine" / "trainer.py" in files
@@ -87,6 +93,12 @@ def test_sources_import_no_optional_library_at_module_level():
                  for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
                  if pattern.search(line)]
+    assert not offenders, "\n".join(offenders)
+    anywhere = re.compile(r"^\s*(import|from)\s+(scipy|cv2|PIL|safetensors)\b")
+    offenders = [f"{f.relative_to(root)}:{i}: {line}"
+                 for f in files
+                 for i, line in enumerate(f.read_text().splitlines(), 1)
+                 if anywhere.search(line)]
     assert not offenders, "\n".join(offenders)
 
 
@@ -109,13 +121,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_mesh(1)
     # the CLIs and the stage-3 data builder
-    from batrack_tpu_torch.cli import run_refine, run_slam
+    from batrack_tpu_torch.cli import infer_depth, infer_metric_depth, run_refine, run_slam
     from batrack_tpu_torch.refine import build_refine_data
 
     for cli in (run_slam, run_refine):
         args = ["--result_dir", "."] if cli is run_refine else []
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(args)
+    # the stage-1 network CLIs refuse before reading their checkpoint
+    for cli in (infer_depth, infer_metric_depth):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["--img_dir", ".", "--out_dir", ".", "--checkpoint", "absent.pth"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_refine_data({})
 

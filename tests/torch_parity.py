@@ -89,3 +89,15 @@ def queries(rng, first):
     n = len(first)
     return np.stack([np.asarray(first, np.float32), rng.uniform(5, W - 5, n),
                      rng.uniform(5, H - 5, n), rng.uniform(2, 6, n)], -1).astype(np.float32)
+
+
+def perturb_(model, seed, scale=0.02, vec_scale=0.1):
+    """Move every parameter off its default init by seeded noise (scale for
+    matrices and kernels, vec_scale for vectors: biases, norms, layer
+    scales), so that parity tests see no weight at exactly 0 or 1. Returns
+    the model."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * (scale if p.dim() > 1 else vec_scale))
+    return model
