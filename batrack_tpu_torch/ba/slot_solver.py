@@ -21,9 +21,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.distributed as dist
 
-from batrack_tpu_torch.ba.solver import robust_weight
+from batrack_tpu_torch.ba.solver import all_reduce_sum, redamped_solve, robust_weight, segment_sum
 from batrack_tpu_torch.geometry import se3
 
 
@@ -50,12 +49,6 @@ def _rot(q, v):
     return ox, oy, oz
 
 
-def _segment_sum(ids: torch.Tensor, vals: torch.Tensor, size: int) -> torch.Tensor:
-    """Sum rows of vals into `size` bins; id == size is dropped."""
-    out = torch.zeros((size + 1,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, ids, vals)[:size]
-
-
 def slot_ba_iteration(
     poses: torch.Tensor,       # (N, 7)
     patches: torch.Tensor,     # (N*M, 3)
@@ -76,23 +69,6 @@ def slot_ba_iteration(
         intrinsics, graph, t0, n, base_k // M, **kw,
     )
     return poses_out, p_fm.reshape(Nf * M, 3)
-
-
-def _all_reduce_sum(mesh, *parts: torch.Tensor):
-    """The parts summed over the ranks, through one all_reduce of one flat
-    buffer (one collective per Gauss-Newton step)."""
-    flat = torch.cat([p.reshape(-1) for p in parts])
-    dist.all_reduce(flat, group=mesh.group)
-    return tuple(x.view_as(p) for x, p in zip(flat.split([p.numel() for p in parts]), parts))
-
-
-def _damped_solve(Sm: torch.Tensor, y: torch.Tensor, ep: float, lm: float) -> torch.Tensor:
-    """Cholesky solve of (Sm + diag(ep + lm * diag(Sm))) x = y; NaN where
-    the factorization fails (what the JAX package's cho_factor yields)."""
-    A = Sm + torch.diag(ep + lm * torch.diagonal(Sm))
-    L, info = torch.linalg.cholesky_ex(A)
-    x = torch.cholesky_solve(y[:, None], L)[:, 0]
-    return torch.where(info != 0, torch.full_like(x, float("nan")), x)
 
 
 def slot_ba_iteration_fm(
@@ -275,13 +251,13 @@ def slot_ba_iteration_fm(
         pose_pair(j_loc, i_loc), pose_pair(j_loc, j_loc),
     ])
     all_blocks = torch.cat([Bii, Bij, Bji, Bjj]).reshape(4 * G_, 36)
-    B = _segment_sum(pair_ids, all_blocks, W * W).reshape(W, W, 6, 6)
+    B = segment_sum(W * W, pair_ids, all_blocks).reshape(W, W, 6, 6)
 
     def in_win(a):
         return torch.where((a >= 0) & (a < W), a, torch.full_like(a, W))
 
-    vvec = _segment_sum(torch.cat([in_win(i_loc), in_win(j_loc)]),
-                        torch.cat([vi, vj]), W)            # (W, 6)
+    vvec = segment_sum(W, torch.cat([in_win(i_loc), in_win(j_loc)]),
+                        torch.cat([vi, vj]))               # (W, 6)
 
     f_ok = (f_loc >= 0) & (f_loc < PF)
 
@@ -291,18 +267,18 @@ def slot_ba_iteration_fm(
 
     ek_pair = torch.cat([ek_ids(i_loc), ek_ids(j_loc)])
     ek_vals = torch.cat([Eik, Ejk]).reshape(2 * G_, 6 * M)
-    E_mat = _segment_sum(ek_pair, ek_vals, W * PF).reshape(W, PF, 6, M)
+    E_mat = segment_sum(W * PF, ek_pair, ek_vals).reshape(W, PF, 6, M)
     E_mat = E_mat.movedim(2, 3).reshape(W, K, 6)
 
     f_ids = torch.where(f_ok, f_loc, torch.full_like(f_loc, PF))
-    C = _segment_sum(f_ids, Ck, PF).reshape(K)
-    wvec = _segment_sum(f_ids, wk, PF).reshape(K)
+    C = segment_sum(PF, f_ids, Ck).reshape(K)
+    wvec = segment_sum(PF, f_ids, wk).reshape(K)
     # edge PRESENCE (not gated validity): the reference's unique(kk) counts
     # every edge in the buffers, so a fully gated patch is still pulled to
     # the mono prior
     present = (val * slot_ok[:, None, None, None] * (live_i < n) * (live_j < n)
                * (live_i >= base_f))
-    edge_counts = _segment_sum(f_ids, present.reshape(G_, M).to(dtype), PF).reshape(K)
+    edge_counts = segment_sum(PF, f_ids, present.reshape(G_, M).to(dtype)).reshape(K)
 
     # ---- prior + Schur + solve ------------------------------------------
     rows_pf = (base_f + torch.arange(PF, device=dev)).clamp(0, Nf - 1)
@@ -323,12 +299,11 @@ def slot_ba_iteration_fm(
         EQE = (E2 * Q[None, :]) @ E2.T
         Ew = E2 @ (Q * w_adj)
         if mesh is not None:
-            B, vvec, EQE, Ew = _all_reduce_sum(mesh, B, vvec, EQE, Ew)
+            B, vvec, EQE, Ew = all_reduce_sum(mesh, B, vvec, EQE, Ew)
         Sm = B.permute(0, 2, 1, 3).reshape(W * 6, W * 6) - EQE
         y = vvec.reshape(W * 6) - Ew
 
-        dx = _damped_solve(Sm, y, ep, lm)
-        dx = torch.where(torch.isnan(dx).any(), _damped_solve(Sm, y, ep, lm * 10.0), dx)
+        dx = redamped_solve(Sm, y, ep, lm)
         dX = dx.reshape(W, 6)
         dZ = Q * (w_adj - E2.T @ dx) * has_edge
 

@@ -63,16 +63,21 @@ def transform(
     kk: torch.Tensor,          # (E,) patch index of each edge
     jacobian: bool = False,
     depth: bool = False,
+    tonly: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[TransformJacobians]]:
     """Reproject patch kk from frame ii into frame jj.
 
     Jj is the derivative of the projected pixel with respect to a left
     perturbation Exp(xi) G_j, Ji = -AdjT(G_ij) Jj, and Jz is with respect to
     the patch inverse depth. Returns (coords, valid, jacobians or None);
-    valid is the Z > MIN_DEPTH gate.
+    valid is the Z > MIN_DEPTH gate. tonly zeroes the relative rotation
+    (projective_ops.py:63-64).
     """
     X0 = iproj(patches[kk], intrinsics[ii])
     Gij = se3.mul(poses[jj], se3.inv(poses[ii]))
+    if tonly:
+        Gij = torch.cat([Gij[..., :3], torch.zeros_like(Gij[..., 3:6]),
+                         torch.ones_like(Gij[..., 6:7])], dim=-1)
     X1 = se3.act4(Gij, X0)
     intr_j = intrinsics[jj]
     x1 = proj(X1, intr_j, depth=depth)
@@ -114,3 +119,42 @@ def point_cloud(
     """Back-project patches into world space; homogeneous (K, 4)."""
     G_inv = se3.inv(poses[ix])
     return se3.act4(G_inv, iproj(patches, intrinsics[ix]))
+
+
+def flow_mag(poses: torch.Tensor, patches: torch.Tensor, intrinsics: torch.Tensor,
+             ii: torch.Tensor, jj: torch.Tensor, kk: torch.Tensor,
+             beta: float = 0.3) -> torch.Tensor:
+    """Blended full/translation-only flow magnitude (projective_ops.py:112-122)."""
+    coords0, _, _ = transform(poses, patches, intrinsics, ii, ii, kk)
+    coords1, _, _ = transform(poses, patches, intrinsics, ii, jj, kk)
+    coords2, _, _ = transform(poses, patches, intrinsics, ii, jj, kk, tonly=True)
+    flow1 = torch.linalg.vector_norm(coords1 - coords0, dim=-1)
+    flow2 = torch.linalg.vector_norm(coords2 - coords0, dim=-1)
+    return beta * flow1 + (1.0 - beta) * flow2
+
+
+def back_proj(xy: torch.Tensor, xy_depth: torch.Tensor, intrinsics: torch.Tensor,
+              cams_c2w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pixels (..., N, 2) + depth (..., N, 1) -> homogeneous (..., N, 4)
+    camera points, or world points through cams_c2w (..., 4, 4)
+    (projective_ops.py:129-149)."""
+    fx, fy, cx, cy = intrinsics.movedim(-1, 0)
+    X = (xy[..., 0] - cx[..., None]) / fx[..., None]
+    Y = (xy[..., 1] - cy[..., None]) / fy[..., None]
+    D = xy_depth[..., 0]
+    P = torch.stack([X * D, Y * D, D, torch.ones_like(X)], dim=-1)
+    if cams_c2w is not None:
+        P = torch.einsum("...ij,...nj->...ni", cams_c2w, P)
+    return P
+
+
+def proj_to_frames(P: torch.Tensor, intrinsics: torch.Tensor,
+                   cams_w2c: torch.Tensor) -> torch.Tensor:
+    """Project world points P (..., N, 4) into frames cams_w2c (..., S, 4, 4)
+    -> (..., S, N, 2) (projective_ops.py:151-175)."""
+    P_c = torch.einsum("...sij,...nj->...sni", cams_w2c, P)
+    fx, fy, cx, cy = intrinsics.movedim(-1, 0)
+    d = 1.0 / P_c[..., 2]
+    x = fx[..., None] * (P_c[..., 0] * d) + cx[..., None]
+    y = fy[..., None] * (P_c[..., 1] * d) + cy[..., None]
+    return torch.stack([x, y], dim=-1)

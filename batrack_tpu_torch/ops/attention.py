@@ -149,11 +149,14 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
     fused_qkv_attention.launches += 1
     if kv is not None:
         fused_qkv_attention.kv_launches += 1
+    if key_mask is not None:
+        fused_qkv_attention.masked_launches += 1
     return out
 
 
-fused_qkv_attention.launches = 0     # every launch, packed or kv=
-fused_qkv_attention.kv_launches = 0  # launches with a kv= source
+fused_qkv_attention.launches = 0         # every launch, packed or kv=
+fused_qkv_attention.kv_launches = 0      # launches with a kv= source
+fused_qkv_attention.masked_launches = 0  # launches with a key mask
 
 
 def vmem_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,7 +21,10 @@ axes are sharded:
   update, visibility and motion heads) run replicated;
 * the slot BA's patches (`sharded_slot_slam_update`): one all_reduce of the
   pose blocks per Gauss-Newton pose step, one all-gather of the patches and
-  one of the map filter's keep mask per backend update.
+  one of the map filter's keep mask per backend update; or, with the flat
+  solver (BA_BACKEND="flat", forced by use_keyframe), the edges
+  (`sharded_slam_update`): one all_reduce of the assembled blocks per
+  Gauss-Newton step and one all-gather of the keep mask per update.
 
 Only rank 0 writes artifacts (`BATrack.get_results(save_path=...)`; the
 CLI, which writes the rest, is not ported yet).
@@ -29,8 +32,7 @@ CLI, which writes the rest, is not ported yet).
 Deviations from the JAX package: batrack_tpu/parallel/sharded_tracker.py
 has no module here, since MDTracker(mesh=) itself shards each refinement
 step; `get_host_chip_mesh` is a flat group (parallel/mesh.py); the
-edge-sharded flat BA (parallel/sharded_ba.py) waits for the flat solver;
-the slot BA's shard_mode="slots" has no caller and is not ported (a mesh
+slot BA's shard_mode="slots" has no caller and is not ported (a mesh
 always means patch sharding).
 """
 
@@ -46,6 +48,7 @@ from batrack_tpu_torch.parallel.shard_kernels import (
     corr_sample_pyramid_sharded,
     fused_qkv_attention_sharded,
 )
+from batrack_tpu_torch.parallel.sharded_ba import sharded_ba_iteration, sharded_slam_update
 from batrack_tpu_torch.parallel.sharded_slot_ba import sharded_slot_slam_update
 
 __all__ = [
@@ -57,5 +60,7 @@ __all__ = [
     "get_mesh",
     "init_distributed",
     "shard_rows",
+    "sharded_ba_iteration",
+    "sharded_slam_update",
     "sharded_slot_slam_update",
 ]

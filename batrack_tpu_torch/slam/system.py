@@ -7,16 +7,22 @@ ring write); once initialised, every frame runs the dual-BA backend update.
 The stages run eagerly on `device` and update one mutable SLAMState in
 place.
 
+With use_keyframe, frames whose motion is small are deleted after each
+append (slam/keyframe.py) and the backend runs the flat edge solver
+(ba/solver.py), as the JAX package forces; `delta` records each removed
+frame's pose relative to its predecessor, and the trajectory follows it.
+
 With `mesh` (parallel/mesh.py::get_mesh) the loop runs on every rank of a
 process group, each with the full state; the backend update runs
-patch-sharded (parallel/sharded_slot_ba.py) and a tracker adapter built
-with the same mesh shards the tracks. Options outside the ported slices
-(use_keyframe, the flat BA backend, sift patches) raise
-NotImplementedError.
+patch-sharded (parallel/sharded_slot_ba.py), or edge-sharded with the flat
+solver (parallel/sharded_ba.py), and a tracker adapter built with the same
+mesh shards the tracks. Options outside the ported slices (sift patches,
+other motion models) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 import pickle
@@ -33,6 +39,11 @@ from batrack_tpu_torch.slam.frontend import (
     gate_and_append,
 )
 from batrack_tpu_torch.slam.ingest import ingest_frame, make_draws
+from batrack_tpu_torch.slam.keyframe import (
+    motion_magnitude_pair,
+    remove_keyframe,
+    remove_window_frame,
+)
 from batrack_tpu_torch.slam.state import StaticDims, init_state
 from batrack_tpu_torch.slam.update import update_point_cloud, slam_update
 from batrack_tpu_torch.utils.config import Config, full_fp32, resolve_device
@@ -43,12 +54,11 @@ TrackerFn = Callable[[TrackerInput], TrackerOutput]
 DrawHook = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 
 
+logger = logging.getLogger(__name__)
+
+
 def _check_supported(cfg: Config) -> None:
     s = cfg.slam
-    if s.use_keyframe:
-        raise NotImplementedError("slam.use_keyframe is not ported yet")
-    if s.BA_BACKEND != "slot":
-        raise NotImplementedError(f"slam.BA_BACKEND={s.BA_BACKEND!r} is not ported yet")
     if s.PATCH_GEN == "sift":
         raise NotImplementedError("slam.PATCH_GEN='sift' is not ported yet")
     if s.MOTION_MODEL != "DAMPED_LINEAR":
@@ -71,17 +81,40 @@ class BATrack:
         _check_supported(cfg)
         self.device = resolve_device(device)
         self.mesh = mesh
+        slam = cfg.slam
+        if (slam.use_keyframe and slam.kf_stride > 1
+                and slam.KEYFRAME_INDEX % slam.kf_stride != 1):
+            # removal candidates k = n - KEYFRAME_INDEX are evaluated only on
+            # append frames (n == 1 mod kf_stride) and _keyframe requires
+            # k == 0 mod kf_stride: both hold only when KEYFRAME_INDEX == 1
+            # mod kf_stride. The reference has the same parity trap
+            # (batrack.py:1002-1031); warn, as the JAX package does
+            logger.warning(
+                "use_keyframe with KEYFRAME_INDEX=%d, kf_stride=%d: keyframe removal can "
+                "never trigger (needs KEYFRAME_INDEX == 1 mod kf_stride; "
+                "reference-identical parity constraint)", slam.KEYFRAME_INDEX, slam.kf_stride)
+        if slam.use_keyframe and slam.BA_BACKEND == "slot":
+            # frame deletion breaks dense slot addressing; the caller's
+            # config is changed, as in the JAX package
+            logger.warning(
+                "BA_BACKEND='slot' is incompatible with use_keyframe (frame deletion breaks "
+                "dense slot addressing); falling back to the flat edge solver — expect "
+                "lower BA throughput")
+            cfg.slam = dataclasses.replace(slam, BA_BACKEND="flat")
         self._update_fn = slam_update
         if mesh is not None:
             # imported here: parallel/ imports the slam modules
             from batrack_tpu_torch.parallel.mesh import mesh_device
+            from batrack_tpu_torch.parallel.sharded_ba import sharded_slam_update
             from batrack_tpu_torch.parallel.sharded_slot_ba import sharded_slot_slam_update
 
             self.device = mesh_device(mesh, self.device)
             if cfg.slam.mesh_devices not in (0, mesh.size):
                 raise ValueError(f"slam.mesh_devices={cfg.slam.mesh_devices} but the mesh "
                                  f"has {mesh.size} ranks")
-            self._update_fn = functools.partial(sharded_slot_slam_update, mesh=mesh)
+            sharded = (sharded_slot_slam_update if cfg.slam.BA_BACKEND == "slot"
+                       else sharded_slam_update)
+            self._update_fn = functools.partial(sharded, mesh=mesh)
         elif cfg.slam.mesh_devices or cfg.slam.distributed:
             raise ValueError("slam.mesh_devices / slam.distributed need mesh=get_mesh(...)")
         self.cfg = cfg
@@ -101,6 +134,9 @@ class BATrack:
         self._slot_info: List[Optional[dict]] = [None] * self.dims.ring_slots
         self.is_initialized = False
         self.tlist: List = []
+        # keyframe removals: counter of the removed frame -> (counter of
+        # its predecessor, relative pose (7,) numpy)
+        self.delta: Dict[int, Tuple[int, np.ndarray]] = {}
         self.ring_overflow_count = 0
         self._last_append_n: Optional[int] = None  # cross-append fmap reuse
         self.timer = StageTimer(enabled=False)
@@ -171,6 +207,9 @@ class BATrack:
                     self.update()
             elif self.is_initialized:
                 self.update()
+                if slam.use_keyframe and (self.n - 1) % slam.kf_stride == 0:
+                    with self.timer.timed("keyframe"):
+                        self._keyframe()
 
     # ------------------------------------------------------------------
     def _alloc_slot(self) -> int:
@@ -193,7 +232,7 @@ class BATrack:
                        key=lambda i: self._slot_info[i]["seq"])
             self.ring_overflow_count += 1
             if self.ring_overflow_count == 1 or self.ring_overflow_count % 100 == 0:
-                logging.getLogger(__name__).warning(
+                logger.warning(
                     "edge ring over capacity (%d slots, all live; occurrence "
                     "#%d); overwriting the oldest", dims.ring_slots,
                     self.ring_overflow_count)
@@ -237,6 +276,45 @@ class BATrack:
         with full_fp32(), self.timer.timed("ba_update"):
             self._update_fn(self.state, self.n, self.is_initialized, self.dims, self.cfg.slam)
 
+    def _keyframe(self) -> None:
+        """Motion-magnitude keyframe removal (batrack.py:1026-1073): one
+        scalar comes to the host per decision."""
+        slam = self.cfg.slam
+        k = self.n - slam.KEYFRAME_INDEX
+        if k % slam.kf_stride != 0 or k < 1:
+            return
+        mag = float(motion_magnitude_pair(self.state, k - 1, k + 1, k, self.dims))
+        if mag >= slam.KEYFRAME_THRESH:
+            return
+        st = self.state
+        t0, t1 = (int(x) for x in st.tstamps[k - 1:k + 1].cpu())
+        self.delta[t1] = (t0, se3.mul(st.poses[k], se3.inv(st.poses[k - 1])).cpu().numpy())
+        remove_keyframe(st, k, self.dims)
+        win_idx = k - self.n + self.dims.S_slam
+        if 0 <= win_idx < self.dims.S_slam:
+            remove_window_frame(st, win_idx, self.dims)
+        self.n -= 1
+        self._last_append_n = None  # the window changed: no fmap reuse
+        # frame k is gone (its edges are invalid) and the frames above it
+        # slide down: the slot allocator's sources follow
+        for info in self._slot_info:
+            if info is not None:
+                info["sources"] = [s - (s > k) for s in info["sources"] if s != k]
+
+    # ------------------------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Checkpoint the whole SLAM state for a mid-sequence resume, in the
+        JAX package's .npz layout (slam/checkpoint.py)."""
+        from batrack_tpu_torch.slam.checkpoint import save_slam_state
+
+        save_slam_state(self, path)
+
+    def load_state(self, path: str) -> None:
+        from batrack_tpu_torch.slam.checkpoint import load_slam_state
+
+        load_slam_state(self, path)
+        self._last_append_n = None
+
     # ------------------------------------------------------------------
     def world_trajectories(self) -> torch.Tensor:
         """Static+dynamic world-point trajectories (the reference's
@@ -247,11 +325,19 @@ class BATrack:
                                write_world=True)
         return self.state.trajs_world
 
+    def get_pose(self, t: int, traj: Dict[int, np.ndarray]) -> np.ndarray:
+        """Pose of counter t, following the removal deltas (batrack.py:223-228)."""
+        if t in traj:
+            return traj[t]
+        t0, dP = self.delta[t]
+        return se3.mul(torch.from_numpy(np.asarray(dP, np.float32)),
+                       torch.from_numpy(self.get_pose(t0, traj))).numpy()
+
     def _full_traj(self) -> np.ndarray:
         tstamps = self.state.tstamps[: self.n].cpu().numpy()
         poses = self.state.poses[: self.n].cpu().numpy()
         traj = {int(t): poses[i] for i, t in enumerate(tstamps)}
-        return np.stack([traj[t] for t in range(self.counter)])
+        return np.stack([self.get_pose(t, traj) for t in range(self.counter)])
 
     def terminate(self) -> Tuple[np.ndarray, np.ndarray]:
         """Final camera-to-world TUM trajectory: (poses (C, 7)
@@ -263,7 +349,13 @@ class BATrack:
     def get_results(self, rgbs=None, dmaps=None, dmaps_gt=None,
                     save_path: Optional[str] = None) -> dict:
         """Results dict with the reference pickle schema (batrack.py:1080-1135),
-        all numpy, so the dense-refinement stage and visualizers read it."""
+        all numpy, so the dense-refinement stage and visualizers read it.
+
+        After keyframe removals the per-frame rows are indexed by buffer
+        row while cams_T_world is indexed by counter, as in the reference
+        (batrack.py:1091-1103); like the JAX package, this warns and adds
+        `stale_rows` (rows whose content is another frame's, or beyond the
+        live buffer) and `buffer_tstamps` (the frame each live row holds)."""
         C = self.counter
         M, S_local = self.dims.M, self.dims.S_local
         Cr = min(C, self.dims.N)
@@ -291,6 +383,22 @@ class BATrack:
         }
         if self.ring_overflow_count:
             results["ring_overflow_count"] = int(self.ring_overflow_count)
+        if self.delta:
+            buffer_tstamps = st.tstamps[: self.n].cpu().numpy()
+            # against np.arange(n), as the JAX package does: this assumes
+            # 0-based contiguous frame counters (ROADMAP C)
+            misaligned = np.nonzero(buffer_tstamps != np.arange(self.n))[0]
+            stale = np.concatenate([misaligned, np.arange(self.n, Cr)])
+            results["stale_rows"] = stale.astype(np.int64)
+            results["buffer_tstamps"] = buffer_tstamps.astype(np.int64)
+            logger.warning(
+                "get_results after %d keyframe removal(s): %d of %d per-frame rows in "
+                "trajs_*/dmaps-aligned buffers are stale or misaligned with cams_T_world "
+                "(reference-identical layout, batrack.py:1091-1103)%s. Consumers must remap "
+                "via the 'stale_rows'/'buffer_tstamps' fields or disable slam.use_keyframe.",
+                len(self.delta), len(stale), Cr,
+                "" if Cr == C else f"; counters {Cr}..{C - 1} exceed the buffer capacity and "
+                "have no per-frame rows (truncated export)")
         if save_path is not None and (self.mesh is None or self.mesh.rank == 0):
             with open(save_path, "wb") as f:
                 pickle.dump(results, f)

@@ -1,8 +1,9 @@
-"""SLAM backend update: dual BA on the slot solver, map-point culling and
-the windowed point-cloud refresh (counterpart of batrack_tpu/slam/update.py,
-slot backend only; the flat backend is still to port). The patch-sharded
-update of the multi-device path shares `dual_ba` and the point-cloud
-refresh (parallel/sharded_slot_ba.py).
+"""SLAM backend update: dual BA on the slot solver (BA_BACKEND="slot") or
+the flat edge solver ("flat", forced by use_keyframe), map-point culling
+and the windowed point-cloud refresh (counterpart of
+batrack_tpu/slam/update.py). The sharded updates of the multi-device path
+share `dual_ba` / `flat_dual_ba` and the point-cloud refresh
+(parallel/sharded_slot_ba.py, parallel/sharded_ba.py).
 
 The JAX package fuses this into one jitted program; here it runs eagerly,
 as a Python loop over the ITER dual-BA passes, updating the state in place.
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 from batrack_tpu_torch.ba.slot_solver import SlotGraph, slot_ba_iteration_fm
+from batrack_tpu_torch.ba.solver import BAProblem, ba_iteration
 from batrack_tpu_torch.geometry import projective, se3
 from batrack_tpu_torch.slam.state import SLAMState, StaticDims
 from batrack_tpu_torch.utils.config import SlamConfig
@@ -44,37 +46,75 @@ def dual_ba(poses: torch.Tensor, patches_fm: torch.Tensor, monodisp_fm: torch.Te
     return poses, patches_fm
 
 
+def flat_dual_ba(poses: torch.Tensor, patches: torch.Tensor, monodisp: torch.Tensor,
+                 intrinsics: torch.Tensor, targets: torch.Tensor, kk: torch.Tensor,
+                 jj: torch.Tensor, valid: torch.Tensor, weights_pose: torch.Tensor,
+                 weights: torch.Tensor, n: int, initialized: bool, dims: StaticDims,
+                 cfg: SlamConfig, mesh=None):
+    """ITER x dual BA over the flat edge list (the BA_BACKEND="flat" branch
+    of the JAX slam_update). The edge arrays (E', ...) are all edges, or
+    this rank's shard when `mesh` is set (parallel/sharded_ba.py)."""
+    M = dims.M
+    t0 = max(n - cfg.OPTIMIZATION_WINDOW, 1) if initialized else 1
+    base_k = max(n - dims.patch_window, 0) * M
+    kw = dict(window=dims.window, patch_window=dims.patch_window, patches_per_frame=M,
+              bounds=(0.0, 0.0, float(dims.wd), float(dims.ht)), ep=cfg.BA_EP,
+              lmbda=cfg.BA_LMBDA, alpha=cfg.BA_ALPHA, loss=cfg.LOSS, mesh=mesh)
+    ii = kk // M
+    for _ in range(cfg.ITER):
+        for w, structure_only in ((weights_pose, False), (weights, True)):
+            prob = BAProblem(poses, patches, monodisp, intrinsics, targets, w, ii, jj, kk,
+                             valid, t0, n, base_k)
+            poses, patches = ba_iteration(prob, structure_only=structure_only, **kw)
+    return poses, patches
+
+
+def map_filter(state: SLAMState, kk: torch.Tensor, jj: torch.Tensor, targets: torch.Tensor,
+               dims: StaticDims, cfg: SlamConfig, gather=None) -> None:
+    """Map-point culling (batrack.py:327-332, 887-889): edges whose
+    reprojection error reaches MAP_FILTERING_TH lose their weights. kk, jj
+    and targets are the edges' patch ids, target frames and 2D targets;
+    on an edge shard (parallel/sharded_ba.py) `gather` brings the shard's
+    keep mask back to every edge."""
+    coords, _, _ = projective.transform(state.poses, state.patches, state.intrinsics,
+                                        kk // dims.M, jj, kk)
+    ate = torch.linalg.vector_norm(coords - targets, dim=-1)
+    keep = (ate < cfg.MAP_FILTERING_TH).to(torch.float32)
+    if gather is not None:
+        keep = gather(keep)
+    state.e_weight = state.e_weight * keep[:, None]
+    state.e_weight_pose = state.e_weight_pose * keep[:, None]
+
+
 def slam_update(state: SLAMState, n: int, initialized: bool, dims: StaticDims,
                 cfg: SlamConfig) -> None:
     """One full backend update (ITER x dual BA + culling + point cloud)."""
-    if cfg.BA_BACKEND != "slot":
-        raise NotImplementedError(f"BA_BACKEND={cfg.BA_BACKEND!r} is not ported")
     M, Nf = dims.M, dims.N
     mid = (dims.S_local + 1) // 2 - 1
-    R, NS, S = dims.ring_slots, dims.n_src, dims.S_slam
-
-    def edges(x):
-        return x.reshape((R, NS, M, S) + x.shape[1:])
-
     # the mono prior reads the local-trajectory mid slot, as the reference
     # does (batrack.py:866); after the first update it holds the BA's own
     # reprojected disparity for weighted tracks
-    monodisp = state.local_targets[:, mid, 2].reshape(Nf, M)
-    poses, patches_fm = dual_ba(
-        state.poses, state.patches.reshape(Nf, M, 3), monodisp, state.intrinsics,
-        edges(state.e_target)[..., :2], edges(state.e_valid), edges(state.e_weight_pose),
-        edges(state.e_weight), state.slot_start, n, initialized, dims, cfg)
-    state.poses, state.patches = poses, patches_fm.reshape(Nf * M, 3)
+    monodisp = state.local_targets[:, mid, 2]
+    if cfg.BA_BACKEND == "slot":
+        R, NS, S = dims.ring_slots, dims.n_src, dims.S_slam
+
+        def edges(x):
+            return x.reshape((R, NS, M, S) + x.shape[1:])
+
+        poses, patches_fm = dual_ba(
+            state.poses, state.patches.reshape(Nf, M, 3), monodisp.reshape(Nf, M),
+            state.intrinsics, edges(state.e_target)[..., :2], edges(state.e_valid),
+            edges(state.e_weight_pose), edges(state.e_weight), state.slot_start, n,
+            initialized, dims, cfg)
+        state.poses, state.patches = poses, patches_fm.reshape(Nf * M, 3)
+    else:  # any other value is the flat solver, as in the JAX package
+        state.poses, state.patches = flat_dual_ba(
+            state.poses, state.patches, monodisp, state.intrinsics, state.e_target[:, :2],
+            state.e_kk.long(), state.e_jj.long(), state.e_valid, state.e_weight_pose,
+            state.e_weight, n, initialized, dims, cfg)
 
     if cfg.USE_MAP_FILTERING:
-        ii = (state.e_kk // M).long()
-        coords, _, _ = projective.transform(
-            poses, state.patches, state.intrinsics, ii, state.e_jj.long(), state.e_kk.long())
-        ate = torch.linalg.vector_norm(coords - state.e_target[:, :2], dim=-1)
-        keep = (ate < cfg.MAP_FILTERING_TH)[:, None].to(torch.float32)
-        state.e_weight = state.e_weight * keep
-        state.e_weight_pose = state.e_weight_pose * keep
-
+        map_filter(state, state.e_kk.long(), state.e_jj.long(), state.e_target[:, :2], dims, cfg)
     update_point_cloud(state, n, dims, window_frames=cloud_window_frames(cfg, dims),
                        write_world=False)
 

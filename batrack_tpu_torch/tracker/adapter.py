@@ -4,9 +4,11 @@
 Around the network it does what the reference _compute_sparse_tracks does
 (batrack.py:529-587): resize the RGB-D window to the model resolution,
 scale query coordinates in and track outputs back out, and merge the static
-branch when configured. With a mesh, every rank passes all queries in and
-gets all tracks back: the network shards its refinement steps over the
-tracks itself (tracker/mdtracker.py).
+branch when configured. With backward_tracking, a second pass runs on the
+flipped window and fills the slots the forward pass never reached
+(_compute_backward_tracks, batrack.py:590-629). With a mesh, every rank
+passes all queries in and gets all tracks back: the network shards its
+refinement steps over the tracks itself (tracker/mdtracker.py).
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ class MDTrackerAdapter:
         so every rank of a mesh builds the same weights. Activations run in
         model_cfg.compute_dtype. device: default CUDA; raises when CUDA is
         asked for and absent. mesh: a parallel.mesh.Mesh on `device`; the
-        tracks are sharded over it. None runs on one device."""
-        if backward_tracking:
-            raise NotImplementedError("backward tracking is not ported yet")
+        tracks are sharded over it. None runs on one device.
+        backward_tracking: the second, flipped pass (the run_slam CLI turns
+        it on only when S_slam > model.S, as the JAX CLI does)."""
+        self.backward_tracking = backward_tracking
         self.device = resolve_device(device)
         if mesh is not None:
             self.device = mesh_device(mesh, self.device)
@@ -95,7 +98,28 @@ class MDTrackerAdapter:
             window, q, prev_fmaps, reuse, static_iters=static_iters)
         traj, depth = self._static_merge(traj, depth, static3d, dyn)
         scale = torch.tensor([W / iw, H / ih], dtype=torch.float32, device=traj.device)
-        return TrackerOutput(tracks=traj * scale, depths=depth, vis=vis, dynamic=dyn), fmaps
+        tracks = traj * scale
+        if self.backward_tracking:
+            # flip the window and the query times; slots the forward pass
+            # never reached (tracks == 0) take the reversed backward outputs.
+            # The backward pass encodes its own features: the forward fmaps
+            # carry per-window depth statistics, and reusing them reversed
+            # moves the tracks by ~0.3 px (the JAX package's measurement).
+            # The same model runs it, with the same static_iters argument
+            # (0 unless a static merge reads the static branch)
+            S = window.shape[0]
+            inv_q = q.clone()
+            inv_q[:, 0] = S - 1 - q[:, 0]
+            itraj, idepth, istatic3d, ivis, idyn, _ = self.model(
+                window.flip(0), inv_q, static_iters=static_iters)
+            itraj, idepth = self._static_merge(itraj, idepth, istatic3d, idyn)
+            mask = tracks == 0.0
+            tracks = torch.where(mask, itraj.flip(0) * scale, tracks)
+            m0 = mask[..., 0]
+            depth = torch.where(m0, idepth.flip(0), depth)
+            vis = torch.where(m0, ivis.flip(0), vis)
+            dyn = torch.where(m0, idyn.flip(0), dyn)
+        return TrackerOutput(tracks=tracks, depths=depth, vis=vis, dynamic=dyn), fmaps
 
     def __call__(self, tin: TrackerInput) -> TrackerOutput:
         reuse = self.reuse_hint or 0

@@ -71,12 +71,38 @@ Phases, each of which fails the run when it fails:
    forward (CUDA events), the CLI's wall time per frame, tokens, TFLOP per
    forward (torch.utils.flop_counter) and TFLOP/s, and peak memory; with
    --profile, device time by kernel over one TF32 forward of each.
+9. the keyframe / multi-window path: davis_demo with use_keyframe
+   (KEYFRAME_INDEX 5: the shipped 4 can never fire with kf_stride 2),
+   S_slam 24 (three sliding windows, K2 with key masks, backward tracking),
+   num_init 23 and OPTIMIZATION_WINDOW 24, so the flat BA runs over every
+   init frame. a. BATrack + MDTrackerAdapter over 40 frames, counters set
+   to 0 just before and read just after: K1 24 and K2 144 launches per
+   append (3 windows x 4 iterations x 6 space blocks, forward and
+   backward), every K2 launch masked, K3, K4 and K1's options 0; frames/s
+   over frames 16-31, synchronised stage ms over 32-39 (with `keyframe`
+   and the flat `ba_update`), removals (must be > 0), peak memory; then
+   one more append's forward with every K1 launch and the first K2 launch
+   of each window's key mask held against the plain versions on the same
+   inputs, K1 timed at that shape beside its bound, and K2 with the first
+   window's key mask timed beside SDPA with the same boolean mask and the
+   bound. b. The same config with the port's OracleTracker (noise 0, no
+   kernel runs; checked) for 32 frames: the ATE against the scene's poses
+   after Sim(3) alignment under tests/test_slam_e2e.py::test_pose_recovery's
+   0.05 and unaligned under twice that (the monocular scale is printed),
+   removals, then one flat update on the card against the CPU
+   within 10x the jitter witness, and the flat update timed with its block
+   sums in float64 (shipped) and in float32, with a profiler split; c. the
+   state saved at frame 28 (initialised, after removals; checked), loaded
+   into a fresh BATrack on the card and run to the end: the same removals,
+   the trajectory within that witness of b's; d. the edge-sharded flat
+   update (parallel/sharded_ba.py) on a one-rank group against b's CPU
+   update.
 
 With --ranks, under torchrun (one process per GPU), it runs only the
 multi-device path at the group's world size: a tracker forward held
 against the single-device one, the SLAM loop with live edges, timed, and
-one patch-sharded backend update of its final state against the CPU
-update (README).
+one patch-sharded backend update and one edge-sharded flat update of its
+final state against the CPU updates (README).
 
 With --decode-ab [ROUNDS], it runs only an A/B of the frame decode through
 `cli.run_slam.main` at davis_demo (main_decode_ab): phase 7's dataset
@@ -114,7 +140,10 @@ check 24 attention launches and 4 K1 launches per append (6 space blocks x
 launch 0 times. Phase 2 prints, beside K1's bound, the bytes of its in-map
 taps and of the resident levels' map copies.
 
-It then prints one {"kernels": [...]} line, the card's name and power limit
+It then prints one {"kernels": [...]} line (phase 9 adds the keyframe
+path's launches to K1's and K2's entries, K1's check and timing at that
+path's shape under "keyframe_path" and K2's masked ones under "masked"),
+the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result. The sha256 it prints first covers this script and every source of
@@ -275,6 +304,40 @@ def plain_kernels(jitter_gen=None):
 
 
 # ---------------------------------------------------------------- K1
+def k1_taps(shapes, coords, radius):
+    """The work every K1 variant must do: the (2r+2)^2 integer taps of each
+    window that lie in its level's map, over the levels' (H, W) `shapes`
+    (out-of-map taps are zero: the vpu kernels skip them, the mxu kernel
+    multiplies zero rows)."""
+    off = torch.arange(2 * radius + 2, device=coords.device, dtype=torch.float32)
+    taps = 0
+    for lvl, (h, w) in enumerate(shapes):
+        c = coords / 2.0 ** lvl
+        xs = torch.floor(c[..., 0:1]) - radius + off
+        ys = torch.floor(c[..., 1:2]) - radius + off
+        nx = ((xs >= 0) & (xs < w)).sum(-1)
+        ny = ((ys >= 0) & (ys < h)).sum(-1)
+        taps += int((nx * ny).sum().item())
+    return taps
+
+
+def k1_bound(pyr, targets, coords, radius, taps, contract="vpu"):
+    """(bound_ms, bound_by, bytes) of one K1 call: every input read once (1
+    byte per int8 map element, and the (L,) scales), the (2r+1)^2 outputs
+    of each window written once; operations are the window products of the
+    in-map taps, on the bf16 tensor cores for mxu, and the 2x2 blend and
+    scale per output."""
+    n_out = targets.shape[0] * targets.shape[1] * len(pyr.shapes) * (2 * radius + 1) ** 2
+    nbytes = (pyr.flat.numel() * pyr.flat.element_size() + targets.numel() * 4
+              + coords.numel() * 4 + n_out * 4
+              + (pyr.scales.numel() * 4 if pyr.scales is not None else 0))
+    if contract == "mxu":
+        ops = [2 * pyr.C * taps / BF16_FLOPS, 8 * n_out / F32_FLOPS]
+    else:
+        ops = [(2 * pyr.C * taps + 8 * n_out) / F32_FLOPS]
+    return (*bound(nbytes, ops), nbytes)
+
+
 def phase_k1(dev, gen):
     """K1 on bf16 maps with the float32 contraction (the tracker's), then
     its two options, the tensor-core contraction and int8 maps, at the
@@ -294,25 +357,12 @@ def phase_k1(dev, gen):
     u = torch.rand((S, NQ, 2), generator=gen, device=dev)
     coords = torch.stack([u[..., 0] * (W4 + 8) - 4, u[..., 1] * (H4 + 8) - 4], -1)
     pyramid = build_pyramid(fm, LEVELS)
-    # the work every variant must do: the (2r+2)^2 integer taps of each
-    # window that lie in its level's map (out-of-map taps are zero: the vpu
-    # kernels skip them, the mxu kernel multiplies zero rows) and the
-    # (2r+1)^2 outputs of each window
-    off = torch.arange(2 * RADIUS + 2, device=dev, dtype=torch.float32)
-    taps = 0
-    for lvl, fl in enumerate(pyramid):
-        c = coords / 2.0 ** lvl
-        xs = torch.floor(c[..., 0:1]) - RADIUS + off
-        ys = torch.floor(c[..., 1:2]) - RADIUS + off
-        nx = ((xs >= 0) & (xs < fl.shape[3])).sum(-1)
-        ny = ((ys >= 0) & (ys < fl.shape[2])).sum(-1)
-        taps += int((nx * ny).sum().item())
-    n_out = NQ * S * LEVELS * (2 * RADIUS + 1) ** 2
+    shapes = [tuple(fl.shape[2:]) for fl in pyramid]
+    taps = k1_taps(shapes, coords, RADIUS)
     # what the main kernel reads beside the bound's bytes: its in-map taps
     # (256 bytes each, read from shared memory for resident levels and
     # through the L2 for streamed ones) and the copies of the resident
     # levels' maps, one per (frame, chunk of RES_CHUNK tracks)
-    shapes = [tuple(fl.shape[2:]) for fl in pyramid]
     resident = resident_levels(shapes, C)
     tap_mb = taps * 2 * C / 1e6
     resident_mb = sum(S * -(-NQ // RES_CHUNK) * h * w * C * 2
@@ -331,17 +381,7 @@ def phase_k1(dev, gen):
             ms = cuda_ms(lambda: corr_sample(pyr, targets, coords, RADIUS, contract=ct), reps=50)
             plain_ms = cuda_ms(lambda: corr_sample_plain(pyr, targets, coords, RADIUS,
                                                          contract=ct), reps=5)
-        # bound: every input read once (1 byte per int8 map element, and the
-        # (L,) scales), the output written once; operations are the window
-        # products of the in-map taps, on the bf16 tensor cores for mxu, and
-        # the 2x2 blend and scale per output
-        nbytes = (pyr.flat.numel() * pyr.flat.element_size() + targets.numel() * 4
-                  + coords.numel() * 4 + n_out * 4 + (LEVELS * 4 if fd == "int8" else 0))
-        if ct == "mxu":
-            ops = [2 * C * taps / BF16_FLOPS, 8 * n_out / F32_FLOPS]
-        else:
-            ops = [(2 * C * taps + 8 * n_out) / F32_FLOPS]
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by, nbytes = k1_bound(pyr, targets, coords, RADIUS, taps, ct)
         log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
             f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {2 * C * taps / 1e9:.2f} "
             f"GFLOP {'bf16' if ct == 'mxu' else 'f32'})")
@@ -836,7 +876,7 @@ def mesh_tracker_check(cfg, tin, mesh, gen):
 # ---------------------------------------------------------------- main path
 def profile_device(label, fn):
     """Device time by kernel over one call of `fn` from torch.profiler, and
-    the device's busy share of the wall time."""
+    the device's busy share of the wall time; returns the kernels' events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -853,6 +893,7 @@ def profile_device(label, fn):
         "kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:110]}")
+    return kernels
 
 
 def profile_frames(slam, images, depths, frames):
@@ -1122,6 +1163,423 @@ def phase_mesh(cfg, images, depths, dev, main_fps, main_poses, ba, tin, gen):
     return launches
 
 
+# ---------------------------------------------------------------- keyframe / multi-window
+# phase 9: davis_demo with keyframe removal (so the flat BA) and S_slam 24,
+# twice the model's window: three sliding windows with key masks and the
+# backward pass. KEYFRAME_INDEX is 5, not the shipped 4: removal candidates
+# are met only on append frames, and with kf_stride 2 only an index that is
+# 1 mod 2 can ever fire (slam/system.py warns about the shipped 4). num_init
+# is S_slam - 1, not 12: in both packages, and with either BA backend, a BA
+# that runs while the append window reaches past the ingested frames turns
+# every pose NaN (edges from frames not yet seen carry zero intrinsics, and
+# their zero weights times NaN Jacobians poison the pose blocks; ROADMAP C).
+KF_S_SLAM, KF_INDEX = 24, 5
+# OPTIMIZATION_WINDOW is num_init + 1, not davis_demo's 15: the init
+# updates run with t0 = n - OPTIMIZATION_WINDOW (in both packages), so with
+# 15 the frames 1-8 of a 24-frame init are never optimised and keep their
+# pre-init poses (PERF.md §6)
+KF_OPT_WINDOW = KF_S_SLAM
+# the oracle run is cut to 32 frames (9 after the init at frame 23) to keep
+# phase 9 near 90 s; its checkpoint is taken after the init and the first
+# removals
+KF_FRAMES, ORACLE_FRAMES = FRAMES, 32
+KF_CHECKPOINT_AT = 28
+# tests/test_slam_e2e.py::test_pose_recovery's 0.05, held on the trajectory
+# after Sim(3) alignment. Unaligned, the oracle run reads just above it (an
+# H100 read 0.0503): the trajectory's shape is recovered to 1e-5, its scale
+# to about 0.95 of the scene's (PERF.md §6-7), so the raw ATE is held to
+# twice the bar
+ATE_SIM3_BAR, ATE_BAR = 0.05, 0.1
+
+
+def keyframe_config():
+    from batrack_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.slam.use_keyframe = True
+    cfg.slam.KEYFRAME_INDEX = KF_INDEX
+    cfg.slam.S_slam = KF_S_SLAM
+    cfg.slam.num_init = KF_S_SLAM - 1
+    cfg.slam.OPTIMIZATION_WINDOW = KF_OPT_WINDOW
+    return cfg
+
+
+def counter_draws(slam_cfg, dims, dev, seed=0):
+    """A BATrack draw hook: frame `counter`'s patch draws from a generator
+    seeded by (seed, counter), so that a run resumed from a checkpoint
+    draws what the uninterrupted run drew."""
+    from batrack_tpu_torch.slam.ingest import make_draws
+
+    def hook(counter):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed * 1_000_003 + counter)
+        return make_draws(slam_cfg.PATCH_GEN, dims.M, dims.ht, dims.wd, g)
+    return hook
+
+
+def launches_per_append(cfg):
+    """(windows, K1, K2) launches per tracker append, from the code: each
+    sliding window runs I refinement iterations, each with one K1 launch
+    and one K2 launch per space block; the backward pass repeats the
+    windows. The static branch is skipped (no static merge)."""
+    m, s = cfg.model, cfg.slam
+    n_wind = max(1, math.ceil((s.S_slam - m.S // 2) / (m.S // 2)))
+    passes = 2 if (s.backward_tracking and s.S_slam > m.S) else 1
+    return n_wind, passes * n_wind * m.I, passes * n_wind * m.I * m.space_depth
+
+
+def ate(poses_tum, poses_gt_w2c):
+    """(RMS camera-centre error as tests/test_slam_e2e.py::ate_rmse takes it,
+    without alignment; the same after Sim(3) alignment, the evaluation
+    protocol's (utils/evaluation.py::umeyama_alignment); the alignment's
+    scale; the aligned error of each frame)."""
+    from batrack_tpu_torch.geometry import se3
+    from batrack_tpu_torch.utils.evaluation import umeyama_alignment
+
+    gt = se3.inv(torch.from_numpy(poses_gt_w2c)).numpy()[:, :3].astype(np.float64)
+    est = poses_tum[:, :3].astype(np.float64)
+    R, t, scale = umeyama_alignment(est, gt)
+    aligned = np.linalg.norm(scale * est @ R.T + t - gt, axis=1)
+    raw = np.linalg.norm(est - gt, axis=1)
+    return (float(np.sqrt(np.mean(raw ** 2))), float(np.sqrt(np.mean(aligned ** 2))), scale,
+            aligned)
+
+
+def kf_masked_k2(masks, dev, gen):
+    """K2 with the key mask of the keyframe path's first window (the
+    fewest active keys) at that path's shape, against its plain version,
+    beside scaled_dot_product_attention with the same boolean mask and
+    the bound of the logits the mask leaves."""
+    import torch.nn.functional as F
+
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+
+    shape, mask = min(masks, key=lambda sm: int(sm[1].sum()))
+    B, N, C3 = shape
+    d = HIDDEN // HEADS
+    scale = d ** -0.5
+    n_keys = int(mask.sum())
+    qkv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    out = fused_qkv_attention(qkv, HEADS, scale, mask)
+    ref = fused_qkv_attention_plain(qkv, HEADS, scale, mask)
+    err = max_err(out, ref)
+    check(f"K2 masked at the keyframe path's shape ({B}, {N}, {C3}), {n_keys} of {N} keys, "
+          "bf16 vs plain", err, bf16_tol(ref))
+    ms = cuda_ms(lambda: fused_qkv_attention(qkv, HEADS, scale, mask), reps=30)
+    plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(qkv, HEADS, scale, mask), reps=3)
+    q, k, v = (x.contiguous() for x in qkv.view(B, N, 3, HEADS, d).permute(2, 0, 3, 1, 4))
+    attn_mask = mask[None, None, None, :]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                                scale=scale), reps=30)
+    nbytes = qkv.numel() * 2 + B * N * HIDDEN * 2 + mask.numel()
+    bound_ms, bound_by, what = attention_bound(B * HEADS * N * n_keys, d, nbytes)
+    log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (SDPA, same mask) "
+        f"{library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by}: {what})")
+    return {"shape": list(shape), "active_keys": n_keys, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_path_kernels(ad, tin):
+    """One tracker forward of `tin` (after the main path's counters are
+    read) with every K1 launch held against its plain version on the same
+    inputs, and K2 on the first launch of each window's key mask, forward
+    and backward. Returns K2's (shape, mask) pairs, K1's first inputs and
+    the checks."""
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention_plain
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample_plain
+    from batrack_tpu_torch.tracker import blocks, mdtracker
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    masks, k1_inputs, checks = [], [], {"k1": [], "k2": []}
+    sample, attend = mdtracker.corr_sample, blocks.fused_qkv_attention
+
+    def sampling(pyr, targets, coords, radius):
+        out = sample(pyr, targets, coords, radius)
+        with full_fp32():
+            checks["k1"].append(max_err(out, corr_sample_plain(pyr, targets, coords, radius)))
+        if not k1_inputs:
+            k1_inputs.extend((pyr, targets, coords, radius))
+        return out
+
+    def attending(qkv, heads, scale, key_mask=None, kv=None):
+        out = attend(qkv, heads, scale, key_mask, kv)
+        if key_mask is not None and not (masks and torch.equal(masks[-1][1], key_mask)):
+            masks.append((tuple(qkv.shape), key_mask.clone()))
+            ref = fused_qkv_attention_plain(qkv, heads, scale, key_mask, kv)
+            checks["k2"].append((max_err(out, ref), bf16_tol(ref)))
+        return out
+
+    with patched(mdtracker, "corr_sample", sampling), \
+            patched(blocks, "fused_qkv_attention", attending):
+        ad(tin)
+    torch.cuda.synchronize()
+    return masks, k1_inputs, checks
+
+
+def kf_path_k1(inputs, checks):
+    """K1's checks on the keyframe path's own inputs (every launch of one
+    append), and its first launch timed beside its plain version and its
+    bound at that path's shape."""
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample, corr_sample_plain
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    pyr, targets, coords, radius = inputs
+    err = max(checks)
+    check(f"K1 on the keyframe path's inputs, {len(checks)} launches of one append at "
+          f"targets {tuple(targets.shape)}, coords {tuple(coords.shape)}, vs plain", err, TOL["k1"])
+    with full_fp32():
+        ms = cuda_ms(lambda: corr_sample(pyr, targets, coords, radius), reps=30)
+        plain_ms = cuda_ms(lambda: corr_sample_plain(pyr, targets, coords, radius), reps=3)
+    taps = k1_taps(pyr.shapes, coords, radius)
+    bound_ms, bound_by, nbytes = k1_bound(pyr, targets, coords, radius, taps)
+    log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
+        f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {2 * pyr.C * taps / 1e9:.2f} "
+        "GFLOP f32)")
+    return {"shape": list(targets.shape), "launches_checked": len(checks), "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_keyframe(images, depths, poses_gt, dev, gen):
+    """Phase 9: a. the keyframe / multi-window path with the MDTracker; b.
+    the same config with the oracle tracker (live edges, no kernel), the
+    flat BA's trajectory against the scene's and one flat update on the card
+    against the CPU; c. a checkpoint half-way through b, resumed on the
+    card; d. the edge-sharded flat update on a one-rank group."""
+    import torch.distributed as dist
+
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
+    from batrack_tpu_torch.parallel import get_mesh, sharded_slam_update
+    from batrack_tpu_torch.slam import BATrack, OracleTracker
+    from batrack_tpu_torch.slam.frontend import build_tracker_input
+    from batrack_tpu_torch.tracker import MDTrackerAdapter
+    from batrack_tpu_torch.utils.config import full_fp32
+    from batrack_tpu_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    # ---- a. MDTracker, keyframe removal, three windows, backward pass
+    cfg = keyframe_config()
+    s = cfg.slam
+    n_wind, k1_per, k2_per = launches_per_append(cfg)
+    log(f"[keyframe] BATrack + MDTrackerAdapter, davis_demo with use_keyframe "
+        f"(KEYFRAME_INDEX={KF_INDEX}), S_slam={s.S_slam} (model S={cfg.model.S}: {n_wind} "
+        f"windows with key masks, backward tracking), num_init={s.num_init}, {HT}x{WD}, "
+        f"{cfg.model.compute_dtype}, {KF_FRAMES} frames")
+    slam = BATrack(cfg, HT, WD, seed=0, device=dev)
+    slam.tracker = MDTrackerAdapter(
+        cfg.model, seed=0, device=dev,
+        backward_tracking=s.backward_tracking and s.S_slam > cfg.model.S)
+    if cfg.slam.BA_BACKEND != "flat" or not slam.tracker.backward_tracking:
+        raise AssertionError("the keyframe config must run the flat BA and backward tracking")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_all_launches()
+    t0 = time.perf_counter()
+    for t in range(STAGE_FROM):
+        if t == STEADY_FROM:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        slam(t, images[t], depths[t], INTR)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    slam.timer = StageTimer(enabled=True, sync=True)
+    for t in range(STAGE_FROM, KF_FRAMES):
+        slam(t, images[t], depths[t], INTR)
+    torch.cuda.synchronize()
+    launches = {**all_launches(), "fused_qkv_attention_masked": fused_qkv_attention.masked_launches}
+    off_path_launches()
+    appends = slam.append_count
+    fps = (STAGE_FROM - STEADY_FROM) / (t_end - t_steady)
+    stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    poses, tstamps = slam.terminate()
+    log(f"  launches {launches} over {appends} appends; per append K1 {k1_per} and K2 "
+        f"{k2_per}, all masked ({n_wind} windows x I={cfg.model.I} x "
+        f"{cfg.model.space_depth} space blocks, forward and backward)")
+    log(f"  frames/s {fps:.3f} (frames {STEADY_FROM}-{STAGE_FROM - 1}, which hold the init "
+        f"frame {s.num_init} and its 12 updates; whole run {t_end - t0:.1f} s)")
+    log(f"  stage ms per call (synchronised, frames {STAGE_FROM}-{KF_FRAMES - 1}): "
+        f"{json.dumps(stage_ms)}")
+    log(f"  keyframe removals {len(slam.delta)} (n {slam.n} of {slam.counter} frames); peak "
+        f"device memory {peak:.2f} GiB")
+    if (launches["corr_sample"] != k1_per * appends
+            or launches["fused_qkv_attention"] != k2_per * appends
+            or launches["fused_qkv_attention_masked"] != launches["fused_qkv_attention"]):
+        raise AssertionError(f"K1 and K2 launched {launches} over {appends} appends, not "
+                             f"{k1_per} and {k2_per} (all masked) per append")
+    if not slam.delta:
+        raise AssertionError("no keyframe was removed")
+    if poses.shape != (KF_FRAMES, 7) or not np.isfinite(poses).all():
+        raise AssertionError(f"trajectory {poses.shape} not finite")
+    log("  kernels on the path's own inputs: one more append's forward, K1 held against its "
+        "plain version at every launch, K2 at the first launch of each window's key mask")
+    masks, k1_inputs, path_checks = check_path_kernels(
+        slam.tracker, build_tracker_input(slam.state, slam.n, slam.dims))
+    k1_path = kf_path_k1(k1_inputs, path_checks["k1"])
+    del k1_inputs
+    for i, ((shape, mask), (err, tol)) in enumerate(zip(masks, path_checks["k2"])):
+        check(f"K2 masked on the keyframe path's inputs, mask {i} ({int(mask.sum())} of "
+              f"{mask.numel()} keys), qkv {shape}, vs plain", err, tol)
+    masked = kf_masked_k2(masks, dev, gen)
+    masked["path_max_abs_err"] = max(e for e, _ in path_checks["k2"])
+    masked["path_masks_checked"] = len(path_checks["k2"])
+    result = {"frames_per_s": fps, "stage_ms": stage_ms, "appends": appends,
+              "launches": launches, "removals": len(slam.delta), "peak_gib": peak,
+              "k1_path": k1_path, "k2_masked": masked}
+    del slam
+    torch.cuda.empty_cache()
+
+    # ---- b. the oracle tracker: live edges, the flat BA's trajectory
+    def oracle_slam():
+        ocfg = keyframe_config()
+        o = BATrack(ocfg, HT, WD, seed=0, device=dev)
+        o.tracker = OracleTracker(poses_gt, INTR, o.dims, device=dev)
+        o.draw_hook = counter_draws(ocfg.slam, o.dims, dev)
+        return o, ocfg
+
+    log(f"[keyframe] the same config with the port's OracleTracker (noise 0) for "
+        f"{ORACLE_FRAMES} frames: no kernel runs here; then a checkpoint at frame "
+        f"{KF_CHECKPOINT_AT} resumed on the card, and one flat update card vs CPU")
+    slam, ocfg = oracle_slam()
+    zero_all_launches()
+    slam.timer = StageTimer(enabled=True, sync=True)
+    tmp = tempfile.mkdtemp(prefix="batrack_ckpt_")
+    ckpt = os.path.join(tmp, "state.npz")
+    try:
+        for t in range(ORACLE_FRAMES):
+            if t == KF_CHECKPOINT_AT:
+                if not (slam.is_initialized and slam.delta):
+                    raise AssertionError(f"the frame-{t} checkpoint must carry the BA's state "
+                                         "and a removal")
+                saved = {"n": slam.n, "removals": len(slam.delta)}
+                slam.save_state(ckpt)
+            slam(t, images[t], depths[t], INTR)
+        torch.cuda.synchronize()
+        oracle_launches = {**all_launches(),
+                           "fused_qkv_attention_masked": fused_qkv_attention.masked_launches}
+        if any(oracle_launches.values()):
+            raise AssertionError(f"a kernel launched on the oracle run: {oracle_launches}")
+        o_poses, _ = slam.terminate()
+        err, err_sim3, scale, per_frame = ate(o_poses, poses_gt[:ORACLE_FRAMES])
+        ba_ms = slam.timer.ms_per_call().get("ba_update")
+        live = int((slam.state.e_weight[:, 0] > 0).sum())
+        removed = sorted(slam.delta)
+        log(f"  ATE {err:.5f} against the scene's poses (bar {ATE_BAR}, twice "
+            f"test_pose_recovery's: the scale is not held), {err_sim3:.3e} after Sim(3) "
+            f"alignment (bar {ATE_SIM3_BAR}), the alignment's scale {scale:.5f} (the run's "
+            f"scale {1 / scale:.5f} of the scene's); removed frames {removed}, aligned error "
+            f"on them {float(per_frame[removed].max()):.3e}, largest {float(per_frame.max()):.3e}"
+            f" at frame {int(per_frame.argmax())}; edge-ring overwrites "
+            f"{slam.ring_overflow_count}; edges with weight > 0: {live}; stage ms per call "
+            f"(synchronised, all frames) "
+            f"{json.dumps({k: round(v, 3) for k, v in slam.timer.ms_per_call().items()})}")
+        if not (err < ATE_BAR and err_sim3 < ATE_SIM3_BAR and removed
+                and o_poses.shape == (ORACLE_FRAMES, 7) and live):
+            raise AssertionError(f"oracle run: ATE {err}, {err_sim3} after Sim(3), "
+                                 f"{len(removed)} removals, {live} live edges")
+
+        # one flat update on the card against the CPU's, beside the witness
+        st, n, M = slam.state, slam.n, slam.dims.M
+        before = on_device(st, "cpu")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        slam.update()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        cpu, jit, cpu_s = cpu_updates(before, n, slam.dims, ocfg.slam)
+        got, wit = update_diffs(st, cpu, n, M), update_diffs(jit, cpu, n, M)
+        log(f"  one flat update ({card_s * 1e3:.1f} ms on the card), card vs CPU "
+            f"{json.dumps(got)}; witness {json.dumps(wit)} (CPU update {cpu_s:.1f} s)")
+        check_update("flat backend update, card vs CPU", got, wit)
+        accumulation = flat_update_accumulation(before, n, slam.dims, ocfg.slam, dev)
+
+        # ---- c. resume from the checkpoint in a fresh BATrack on the card
+        resumed, _ = oracle_slam()
+        resumed.load_state(ckpt)
+        if not (resumed.is_initialized and {"n": resumed.n, "removals": len(resumed.delta)}
+                == saved):
+            raise AssertionError(f"the checkpoint loaded n {resumed.n}, {len(resumed.delta)} "
+                                 f"removals, initialised {resumed.is_initialized}; saved {saved}")
+        for t in range(KF_CHECKPOINT_AT, ORACLE_FRAMES):
+            resumed(t, images[t], depths[t], INTR)
+        r_poses, _ = resumed.terminate()
+        resume_err = float(np.abs(r_poses - o_poses).max())
+        log(f"  checkpoint at frame {KF_CHECKPOINT_AT}: n {saved['n']}, {saved['removals']} "
+            f"removals, initialised; the resumed run removed {sorted(resumed.delta)}")
+        if sorted(resumed.delta) != removed:
+            raise AssertionError(f"the resumed run removed {sorted(resumed.delta)}, the "
+                                 f"uninterrupted one {removed}")
+        check(f"trajectory resumed from the frame-{KF_CHECKPOINT_AT} checkpoint vs the "
+              f"uninterrupted run (limit 10x the witness {wit['poses']:.3e})", resume_err,
+              max(TOL["ba_floor"], TOL["ba_witness_factor"] * wit["poses"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- d. the edge-sharded flat update on a one-rank group
+    mesh = get_mesh(1, device=dev)
+    try:
+        state = on_device(before, dev)
+        with full_fp32():
+            sharded_slam_update(state, n, True, slam.dims, ocfg.slam, mesh)
+        torch.cuda.synchronize()
+        sh_got = update_diffs(state, cpu, n, M)
+        log(f"  edge-sharded flat update on get_mesh(1) ({dist.get_backend()}), card vs CPU "
+            f"{json.dumps(sh_got)}")
+        check_update("edge-sharded flat update, card vs CPU", sh_got, wit)
+    finally:
+        dist.destroy_process_group()
+    result.update(oracle_ate=err, oracle_ate_sim3=err_sim3, oracle_scale=1 / scale,
+                  oracle_removed=removed, flat_ba_ms=ba_ms, flat_update_card_s=card_s,
+                  flat_update_vs_cpu=got, flat_update_witness=wit,
+                  flat_update_accumulation=accumulation, resume_err=resume_err,
+                  edge_sharded_vs_cpu=sh_got, seconds=time.perf_counter() - t_phase)
+    log(f"  phase 9 took {result['seconds']:.1f} s")
+    return result
+
+
+def flat_update_accumulation(before, n, dims, slam_cfg, dev):
+    """The flat backend update of `before` on the card with its block sums
+    accumulated in float64 (as shipped, ba/solver.py::accumulation_dtype)
+    and in float32: ms per update from CUDA events, in the order f64, f32,
+    f32, f64 after one warm-up of each, the two results' largest pose
+    difference, and torch.profiler's split of one shipped update."""
+    from batrack_tpu_torch.ba import solver
+    from batrack_tpu_torch.slam.update import slam_update
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    def run(f32):
+        state = on_device(before, dev)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with full_fp32(), (patched(solver, "accumulation_dtype", lambda d: d) if f32
+                           else contextlib.nullcontext()):
+            start.record()
+            slam_update(state, n, True, dims, slam_cfg)
+            end.record()
+        end.synchronize()
+        return start.elapsed_time(end), state.poses[:n]
+
+    run(False), run(True)  # warm-up
+    times, poses = {False: [], True: []}, {}
+    for f32 in (False, True, True, False):
+        ms, poses[f32] = run(f32)
+        times[f32].append(ms)
+    res = {"float64_ms": times[False], "float32_ms": times[True],
+           "poses_f64_vs_f32": max_err(poses[False], poses[True])}
+    log(f"  flat update, block sums in float64 (shipped) vs float32: {json.dumps(res)}")
+    state = on_device(before, dev)
+    with full_fp32():
+        kernels = profile_device("one flat update (float64 sums)",
+                                 lambda: slam_update(state, n, True, dims, slam_cfg))
+    index_add = sum(e.self_device_time_total for e in kernels if "indexFunc" in e.key) / 1e3
+    res["profile_busy_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+    res["profile_index_add_ms"] = index_add
+    log(f"  index_add_ kernels (indexFunc*) {index_add:.3f} ms of {res['profile_busy_ms']:.3f} "
+        "ms device time")
+    return res
+
+
 # ---------------------------------------------------------------- --ranks
 def phase_ranks(cfg, images, depths, mesh, gen):
     """The multi-device path at the mesh's world size, one process per
@@ -1134,12 +1592,13 @@ def phase_ranks(cfg, images, depths, mesh, gen):
     between the ranks' replicated trajectories. Last, one patch-sharded
     backend update of the final live-edge state at this world size, held
     on rank 0 against the CPU update of the same state within 10x the
-    witness of that state (as phase 5)."""
+    witness of that state (as phase 5), and the edge-sharded flat update
+    (parallel/sharded_ba.py) of the same state, held the same way."""
     import torch.distributed as dist
 
     from batrack_tpu_torch.ops.attention import fused_qkv_attention
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
-    from batrack_tpu_torch.parallel import sharded_slot_slam_update
+    from batrack_tpu_torch.parallel import sharded_slam_update, sharded_slot_slam_update
     from batrack_tpu_torch.slam import BATrack
     from batrack_tpu_torch.tracker import MDTrackerAdapter
     from batrack_tpu_torch.utils.config import full_fp32
@@ -1194,6 +1653,21 @@ def phase_ranks(cfg, images, depths, mesh, gen):
         check_update(f"patch-sharded backend update at {mesh.size} ranks, card vs CPU",
                      ba_got, ba_wit)
 
+    # the edge-sharded flat update (use_keyframe's backend) of the same state
+    # at this world size: one all_reduce of the assembled blocks per step
+    flat = dataclasses.replace(cfg.slam, BA_BACKEND="flat")
+    state = on_device(before, dev)
+    with full_fp32():
+        sharded_slam_update(state, n, True, slam.dims, flat, mesh)
+    torch.cuda.synchronize(dev)
+    if lead:
+        cpu, jit, _ = cpu_updates(before, n, slam.dims, flat)
+        flat_got, flat_wit = update_diffs(state, cpu, n, M), update_diffs(jit, cpu, n, M)
+        log(f"  edge-sharded flat update at {mesh.size} ranks, card vs CPU "
+            f"{json.dumps(flat_got)}; witness {json.dumps(flat_wit)}")
+        check_update(f"edge-sharded flat update at {mesh.size} ranks, card vs CPU",
+                     flat_got, flat_wit)
+
     poses, _ = slam.terminate()
     mine = torch.from_numpy(poses).to(dev).contiguous()
     parts = [torch.empty_like(mine) for _ in range(mesh.size)]
@@ -1206,7 +1680,8 @@ def phase_ranks(cfg, images, depths, mesh, gen):
               "stage_ms": {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()},
               "live_edges": int((slam.state.e_weight[:, 0] > 0).sum()),
               "tracker_mesh_vs_one_device": diff,
-              "ba_update_vs_cpu": ba_got, "ba_update_witness": ba_wit}
+              "ba_update_vs_cpu": ba_got, "ba_update_witness": ba_wit,
+              "flat_update_vs_cpu": flat_got, "flat_update_witness": flat_wit}
     log(f"  {json.dumps(result)}")
     if not (np.isfinite(poses).all() and launches["corr_sample"]
             and launches["fused_qkv_attention_kv"] >= slam.append_count):
@@ -1558,6 +2033,7 @@ def zero_all_launches():
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
 
     corr_sample.launches = fused_qkv_attention.launches = fused_qkv_attention.kv_launches = 0
+    fused_qkv_attention.masked_launches = 0
     zero_off_path()
 
 
@@ -2047,7 +2523,7 @@ def main() -> int:
     phase_edges(dev, gen)
 
     cfg = Config()  # davis_demo defaults
-    images, depths, _ = make_scene(FRAMES + 2, HT, WD, INTR)
+    images, depths, poses_gt = make_scene(FRAMES + 2, HT, WD, INTR)
     tin, flash_launches = phase_tracker(cfg, images, depths, dev, gen)
     launches, fps, poses_at_stage = phase_slam(cfg, images, depths, dev, args.profile)
     ba = phase_ba(cfg, images, depths, dev)
@@ -2056,6 +2532,8 @@ def main() -> int:
     phase_refine(dev, FRAMES, cfg.slam.PATCHES_PER_FRAME, cfg.slam.S_local, args.profile)
     stage1 = phase_demo(dev, args.profile)
     log(f"[stage 1] {json.dumps(stage1)}")
+    kf = phase_keyframe(images, depths, poses_gt, dev, gen)
+    log(f"[keyframe] {json.dumps(kf)}")
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]
@@ -2067,6 +2545,13 @@ def main() -> int:
     k1_mxu["launches"] = ab_launches["corr_sample_mxu"]
     k1_int8["launches"] = ab_launches["corr_sample_int8"]
     k4["launches"] = flash_launches
+    # phase 9: the keyframe / multi-window path's launches, and K2's masked
+    # route timed at that path's shape
+    k1["launches_keyframe_path"] = kf["launches"]["corr_sample"]
+    k1["keyframe_path"] = kf["k1_path"]
+    k2["launches_keyframe_path"] = kf["launches"]["fused_qkv_attention"]
+    k2["masked_launches_keyframe_path"] = kf["launches"]["fused_qkv_attention_masked"]
+    k2["masked"] = kf["k2_masked"]
     print(json.dumps({"kernels": [k1, k1_mxu, k1_int8, k2, k2kv, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

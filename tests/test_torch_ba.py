@@ -128,11 +128,11 @@ def test_robust_weight_matches_jax(rng, loss):
 
 def test_damped_solve_redamps_on_failed_cholesky():
     """A system Cholesky rejects gives NaN (JAX's cho_factor result), which
-    triggers the 10x re-damp in slot_ba_iteration."""
-    from batrack_tpu_torch.ba.slot_solver import _damped_solve
+    triggers the 10x re-damp in both solvers (ba/solver.py::redamped_solve)."""
+    from batrack_tpu_torch.ba.solver import damped_solve
 
     Sm = -torch.eye(6) * 5.0
     y = torch.ones(6)
-    assert torch.isnan(_damped_solve(Sm, y, 0.0, 1e-4)).all()
-    x = _damped_solve(torch.eye(6), y, 1.0, 0.0)
+    assert torch.isnan(damped_solve(Sm, y, 0.0, 1e-4)).all()
+    x = damped_solve(torch.eye(6), y, 1.0, 0.0)
     assert_close(x, np.full(6, 0.5, np.float32), atol=1e-7)

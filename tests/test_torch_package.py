@@ -47,6 +47,10 @@ def test_import_leaves_jax_and_batrack_tpu_out():
             "batrack_tpu_torch.cli.infer_depth", "batrack_tpu_torch.cli.infer_metric_depth",
             "batrack_tpu_torch.cli.align_depth", "batrack_tpu_torch.cli.vis_results",
             "batrack_tpu_torch.utils.visualizer", "batrack_tpu_torch.utils.tensorfile",
+            "batrack_tpu_torch.ba.solver", "batrack_tpu_torch.slam.keyframe",
+            "batrack_tpu_torch.slam.oracle", "batrack_tpu_torch.slam.checkpoint",
+            "batrack_tpu_torch.parallel.sharded_ba", "batrack_tpu_torch.geometry.so3",
+            "batrack_tpu_torch.geometry.sim3",
             } <= set(_submodules())
     code = (
         "import importlib, sys\n"
@@ -134,6 +138,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
             cli.main(["--img_dir", ".", "--out_dir", ".", "--checkpoint", "absent.pth"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_refine_data({})
+
+
+def test_keyframe_flat_and_backward_options_construct(monkeypatch):
+    """use_keyframe, BA_BACKEND="flat" and backward tracking, which raised
+    before they were ported, construct on the CPU; the oracle tracker is an
+    entry point too and refuses a missing CUDA device."""
+    from batrack_tpu_torch.slam import OracleTracker
+    from batrack_tpu_torch.slam.state import StaticDims
+
+    cfg = config.Config()
+    cfg.slam.use_keyframe = True
+    slam = BATrack(cfg, 48, 64, device="cpu")
+    assert slam.cfg.slam.BA_BACKEND == "flat" and slam.delta == {}
+    cfg = config.Config()
+    cfg.slam.BA_BACKEND = "flat"
+    BATrack(cfg, 48, 64, device="cpu")
+    small = config.ModelConfig(S=4, sliding_window_len=4, space_depth=1, time_depth=1,
+                               space_depth_dyn=1, time_depth_dyn=1)
+    assert MDTrackerAdapter(small, backward_tracking=True, device="cpu").backward_tracking
+    dims = StaticDims.from_config(cfg, 48, 64)
+    OracleTracker(np.zeros((2, 7), np.float32), np.ones(4, np.float32), dims, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        OracleTracker(np.zeros((2, 7), np.float32), np.ones(4, np.float32), dims)
 
 
 def test_get_mesh_needs_a_group_for_more_than_one_rank(monkeypatch):
