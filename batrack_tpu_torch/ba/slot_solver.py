@@ -14,6 +14,13 @@ sums agree to float32 rounding of a different order.
 
 Frame indices that the host knows (t0, n, the depth-window start) are
 Python ints.
+
+With a mesh the system shards either axis, as the JAX package's
+shard_mode does: "patches" (every caller's choice: each rank holds a
+shard of the patches of every frame, parallel/sharded_slot_ba.py) or
+"slots" (the function's default, as in JAX: each rank holds a contiguous
+block of ring slots with every patch, parallel/sharded_slot_ba.py::
+shard_slots).
 """
 
 from __future__ import annotations
@@ -93,18 +100,25 @@ def slot_ba_iteration_fm(
     loss: str = "huber",
     structure_only: bool = False,
     mesh=None,
+    shard_mode: str = "slots",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped Gauss-Newton step over the dense slot graph.
 
-    With `mesh` set (the JAX package's axis_name with shard_mode="patches")
-    the patch axis M of patches_fm, monodisp_fm and the graph is this
-    rank's shard of the patches of every frame (parallel/sharded_slot_ba.py):
-    the per-patch pieces C, w and E are complete locally, and the pose
-    blocks B, v and the Schur terms E Q E^T and E Q w are summed over the
-    ranks by one all_reduce of one flat buffer before the replicated pose
-    solve; the depth update stays local. The JAX package's
-    shard_mode="slots" (groups split across ranks) has no caller in either
-    package and is not ported."""
+    With `mesh` set (the JAX package's axis_name), shard_mode says which
+    axis of the graph this rank holds a shard of; each reduction is one
+    all_reduce of one flat buffer:
+
+      * "slots": the slot axis R (parallel/sharded_slot_ba.py::shard_slots)
+        with every patch, so the per-patch pieces E, C, w and the edge
+        counts are summed over the ranks with the pose blocks B and v, and
+        the prior, Schur complement and solves then run replicated;
+      * "patches" (every caller's choice, in both packages): the patch axis
+        M of patches_fm, monodisp_fm and the graph, all slots
+        (parallel/sharded_slot_ba.py): C, w and E are complete locally;
+        only B, v and the Schur terms E Q E^T and E Q w are summed, before
+        the replicated pose solve, and the depth update stays local."""
+    if shard_mode not in ("slots", "patches"):
+        raise ValueError(f"shard_mode={shard_mode!r} (slots or patches)")
     R, NS, M, S, _ = graph.targets.shape
     W = window
     PF = patch_window
@@ -279,6 +293,9 @@ def slot_ba_iteration_fm(
     present = (val * slot_ok[:, None, None, None] * (live_i < n) * (live_j < n)
                * (live_i >= base_f))
     edge_counts = segment_sum(PF, f_ids, present.reshape(G_, M).to(dtype)).reshape(K)
+    if mesh is not None and shard_mode == "slots":
+        B, E_mat, C, wvec, vvec, edge_counts = all_reduce_sum(
+            mesh, B, E_mat, C, wvec, vvec, edge_counts)
 
     # ---- prior + Schur + solve ------------------------------------------
     rows_pf = (base_f + torch.arange(PF, device=dev)).clamp(0, Nf - 1)
@@ -298,7 +315,7 @@ def slot_ba_iteration_fm(
         E2 = E_mat.transpose(1, 2).reshape(W * 6, K)
         EQE = (E2 * Q[None, :]) @ E2.T
         Ew = E2 @ (Q * w_adj)
-        if mesh is not None:
+        if mesh is not None and shard_mode == "patches":
             B, vvec, EQE, Ew = all_reduce_sum(mesh, B, vvec, EQE, Ew)
         Sm = B.permute(0, 2, 1, 3).reshape(W * 6, W * 6) - EQE
         y = vvec.reshape(W * 6) - Ew

@@ -6,7 +6,7 @@ Usage:
         --checkpoint depth_anything_v2_vitl.pth [--encoder vitl] [--input_size 518]
         [--device cuda]
 
-Runs DepthAnythingV2 over the PNG frames of FRAMES and saves one relative
+Runs DepthAnythingV2 over the frames of FRAMES (*.jpg and *.png) and saves one relative
 disparity OUT/<frame>.npy (float32, the frame's size) per frame. The
 released .pth loads as it is. --device defaults to CUDA and raises when
 CUDA is absent.
@@ -39,7 +39,7 @@ def main(argv=None) -> int:
                         help="torch device (default cuda; raises without CUDA)")
     args = parser.parse_args(argv)
 
-    from batrack_tpu_torch.data.png import read_image
+    from batrack_tpu_torch.data.image import read_image
     from batrack_tpu_torch.depth import dpt
     from batrack_tpu_torch.utils.config import resolve_device
 

@@ -6,7 +6,7 @@ Usage:
         --checkpoint model.safetensors [--arch vitl] [--intrinsics K.npy]
         [--resolution_level N] [--device cuda]
 
-Runs UniDepthV2 over the PNG frames of FRAMES and saves one
+Runs UniDepthV2 over the frames of FRAMES (*.jpg and *.png) and saves one
 OUT/<frame>.npz {depth, fov, intrinsics} per frame, the metric input of
 align_depth. The released checkpoint (.pth, .bin or .safetensors) loads as
 it is. --device defaults to CUDA and raises when CUDA is absent.
@@ -22,7 +22,7 @@ import numpy as np
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--img_dir", required=True, help="directory of *.png frames")
+    parser.add_argument("--img_dir", required=True, help="directory of *.jpg / *.png frames")
     parser.add_argument("--out_dir", required=True, help="output dir for per-frame .npz files")
     parser.add_argument("--checkpoint", required=True,
                         help="UniDepthV2 checkpoint (v2-vitl14 / v2-vits14)")
@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from batrack_tpu_torch.cli.infer_depth import frame_paths
-    from batrack_tpu_torch.data.png import read_image
+    from batrack_tpu_torch.data.image import read_image
     from batrack_tpu_torch.depth import unidepth
     from batrack_tpu_torch.utils.config import resolve_device
 

@@ -7,8 +7,9 @@ Usage:
 
 Hydra-style `a.b=c` overrides are accepted after the flags. Writes, under
 data.savedir/data.name, results.pkl, batrack_traj.txt, traj_plot.pdf (when
-matplotlib is installed) and eval_metrics.txt, and appends to
-data.savedir/error_sum.txt when data.gt_traj is set. --device defaults to
+matplotlib is installed), eval_metrics.txt and, with save_video=true, the
+track video <PATCH_GEN>.mp4, and appends to data.savedir/error_sum.txt when
+data.gt_traj is set. --device defaults to
 CUDA and raises when CUDA is absent.
 
 As in the JAX CLI, slam.distributed joins the torchrun process group
@@ -116,9 +117,6 @@ def main(argv=None) -> int:
 
     cfg = load_config(args.config, args.overrides)
     device = resolve_device(args.device)
-    if cfg.save_video:
-        raise NotImplementedError("save_video=true needs the track visualizer, which is not "
-                                  "ported yet")
     owns_group = not torch.distributed.is_initialized()
     mesh = _make_mesh(cfg, device)
     try:
@@ -137,6 +135,7 @@ def _run(cfg, seed: int, device: torch.device, mesh) -> int:
         plot_trajectory,
         save_trajectory_tum_format,
     )
+    from batrack_tpu_torch.utils.visualizer import TrackVisualizer
 
     if mesh is not None:
         logger.info("device mesh: %s", mesh)
@@ -176,6 +175,11 @@ def _run(cfg, seed: int, device: torch.device, mesh) -> int:
                 ht, wd = image.shape[:2]
                 slam = BATrack(cfg, ht, wd, seed=seed, device=device, mesh=mesh)
                 slam.timer.enabled = True
+                if cfg.save_video:
+                    slam.visualizer = TrackVisualizer(
+                        save_dir=os.path.join(cfg.data.savedir, cfg.data.name),
+                        fps=cfg.visualizer.fps, linewidth=cfg.visualizer.linewidth,
+                        tracks_leave_trace=cfg.visualizer.tracks_leave_trace)
                 slam.tracker = MDTrackerAdapter(
                     cfg.model, state_dict=state_dict,
                     backward_tracking=(cfg.slam.backward_tracking
@@ -184,9 +188,10 @@ def _run(cfg, seed: int, device: torch.device, mesh) -> int:
             else:
                 slam.timer.add("stream", waited)
             # one-frame look-ahead: frame t+1's host-to-device copy overlaps
-            # frame t's work
+            # frame t's work; the host frame rides along for the host work
+            # (sift patches, the track video), which then copies nothing back
             dev_img, dev_depth = slam.upload_frame(image, depth)
-            item = (t, dev_img, dev_depth, intrinsics)
+            item = (t, dev_img, dev_depth, intrinsics, image)
             if pending is not None:
                 if cfg.profile_dir and nf == PROFILE_FRAMES[0]:
                     prof = _start_profile()
@@ -233,6 +238,11 @@ def _run(cfg, seed: int, device: torch.device, mesh) -> int:
         slam.get_results(rgbs=image_list, dmaps=depth_list, dmaps_gt=depth_list_gt,
                          save_path=os.path.join(outdir, "results.pkl"))
         logger.info("results saved to %s", os.path.join(outdir, "results.pkl"))
+
+    if cfg.save_video and slam.visualizer is not None:
+        path = slam.visualizer.save_video(filename=cfg.slam.PATCH_GEN)
+        if path:
+            logger.info("track video saved to %s", path)
 
     if cfg.save_trajectory:
         save_trajectory_tum_format(pred_traj, os.path.join(outdir, "batrack_traj.txt"))

@@ -1,8 +1,9 @@
 """Worker process of data/streams.py::_ahead.
 
 Started as `python -m batrack_tpu_torch.data.decode_worker`, it imports
-only what its jobs need (no torch, and never the parent's main module, as
-multiprocessing's spawn would). Each job on stdin is a pickled
+only what its jobs need (numpy for PNG frames, cv2 too for JPEG frames; no
+torch, and never the parent's main module, as multiprocessing's spawn
+would). Each job on stdin is a pickled
 (module, function name, args); each answer on stdout is a pickled
 ("ok", result) or ("error", exception). Both are framed by an 8-byte
 little-endian length. It exits at the end of its input.

@@ -1,14 +1,16 @@
-"""PNG decoder on the standard library (zlib) and numpy: the port's image
-reader.
+"""PNG decoder on the standard library (zlib) and numpy: the PNG half of
+the port's frame reader (data/image.py) and its TUM depth reader.
 
-The repository's native library decodes with libpng and libjpeg, which the
-GPU machines this port targets do not have, so the streams read PNG here:
-every colour type and bit depth of non-interlaced PNG, as RGB uint8 the way
+The repository's native library decodes with libpng, which the GPU
+machines this port targets do not have. read_png_rgb reads PNG of every
+colour type and bit depth, plain or Adam7-interlaced, as RGB uint8 the way
 cv2.imread + COLOR_BGR2RGB (and libpng's expand, strip_16, strip_alpha and
 gray_to_rgb transforms) give it: grey is replicated to RGB, alpha dropped,
 16-bit samples cut to their high byte, 1/2/4-bit grey scaled to 0..255 and
-palettes looked up. JPEG and interlaced PNG raise. write_png is the
-matching 8-bit RGB encoder, with libpng's choice of row filters.
+palettes looked up. read_png_gray keeps the samples of an 8- or 16-bit
+greyscale PNG (TUM depth maps), as PIL reads them. write_png is the
+matching encoder of 8-bit RGB and 16-bit grey, with libpng's choice of row
+filters.
 """
 
 from __future__ import annotations
@@ -105,8 +107,34 @@ def _unpack(rows: np.ndarray, depth: int, width: int) -> np.ndarray:
     return (bits * weights).sum(-1).astype(np.uint8)[:, :width]
 
 
-def read_png_rgb(path) -> np.ndarray:
-    """PNG file -> (H, W, 3) RGB uint8."""
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _samples(raw: np.ndarray, w: int, h: int, depth: int, channels: int, path):
+    """The first image of w x h pixels in the filtered stream `raw`:
+    ((h, w, channels) samples, uint8 or uint16 for 16 bits; bytes used)."""
+    stride = (w * channels * depth + 7) // 8
+    size = h * (stride + 1)
+    if raw.size < size:
+        raise ValueError(f"{path}: truncated PNG image data")
+    rows = _unfilter(raw[:size].reshape(h, stride + 1), h, stride,
+                     max(1, channels * depth // 8))
+    if depth == 16:
+        px = rows.reshape(h, w * channels, 2)
+        px = ((px[..., 0].astype(np.uint16) << 8) | px[..., 1]).reshape(h, w, channels)
+    elif depth == 8:
+        px = rows.reshape(h, w, channels)
+    else:  # 1/2/4 bits: grey or palette, one sample per pixel
+        px = _unpack(rows, depth, w)[..., None]
+    return px, size
+
+
+def _decode(path):
+    """A PNG file's samples: ((h, w, channels) uint8, or uint16 for 16
+    bits; IHDR fields (depth, colour type); palette or None). Interlaced
+    (Adam7) images are put together from their seven passes."""
     with open(path, "rb") as fh:
         buf = fh.read()
     if not buf.startswith(_SIGNATURE):
@@ -124,24 +152,27 @@ def read_png_rgb(path) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"{path}: unsupported PNG colour type {ctype} / bit depth {depth}")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNG is not supported")
     channels = _CHANNELS[ctype]
-    stride = (w * channels * depth + 7) // 8
-    bpp = max(1, channels * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (stride + 1):
-        raise ValueError(f"{path}: truncated PNG image data")
-    rows = _unfilter(raw[: h * (stride + 1)].reshape(h, stride + 1), h, stride, bpp)
+    if not interlace:
+        px, _ = _samples(raw, w, h, depth, channels, path)
+        return px, (depth, ctype), palette
+    px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            px[y0::dy, x0::dx], used = _samples(raw, pw, ph, depth, channels, path)
+            raw = raw[used:]
+    return px, (depth, ctype), palette
 
+
+def read_png_rgb(path) -> np.ndarray:
+    """PNG file -> (H, W, 3) RGB uint8."""
+    px, (depth, ctype), palette = _decode(path)
     if depth == 16:
-        px = rows.reshape(h, w, channels, 2)[..., 0]     # big-endian: high byte first
-    elif depth == 8:
-        px = rows.reshape(h, w, channels)
-    else:  # 1/2/4 bits: grey or palette, one sample per pixel
-        px = _unpack(rows, depth, w)[..., None]
-        if ctype == 0:
-            px = px * np.uint8(255 // ((1 << depth) - 1))
+        px = (px >> 8).astype(np.uint8)                  # libpng's strip_16: the high byte
+    elif depth < 8 and ctype == 0:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
@@ -151,18 +182,44 @@ def read_png_rgb(path) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
+def read_png_gray(path) -> np.ndarray:
+    """8- or 16-bit greyscale PNG -> (H, W) uint8 or uint16, its samples
+    unchanged (a TUM depth map: metres x 5000 in 16 bits)."""
+    px, (depth, ctype), _ = _decode(path)
+    if ctype != 0 or depth not in (8, 16):
+        raise ValueError(f"{path}: not an 8- or 16-bit greyscale PNG "
+                         f"(colour type {ctype}, bit depth {depth})")
+    return px[..., 0].copy()
+
+
+def png_size(path):
+    """(H, W) of a PNG file from its header."""
+    with open(path, "rb") as fh:
+        head = fh.read(24)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
 def _chunk(tag: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + tag + body
             + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
 
 
-def write_png(path, rgb: np.ndarray, filters=None) -> None:
-    """(H, W, 3) uint8 -> 8-bit RGB PNG. `filters` is a filter type 0-4
-    for every row, or one per row; by default each row takes the filter
-    libpng's adaptive heuristic picks: the least sum of its bytes read as
-    signed, the first of equals."""
-    h, w, _ = rgb.shape
-    x = rgb.reshape(h, w, 3).astype(np.int16)
+def write_png(path, image: np.ndarray, filters=None) -> None:
+    """(H, W, 3) uint8 -> 8-bit RGB PNG, or (H, W) uint16 -> 16-bit grey
+    PNG. `filters` is a filter type 0-4 for every row, or one per row; by
+    default each row takes the filter libpng's adaptive heuristic picks:
+    the least sum of its bytes read as signed, the first of equals."""
+    if image.dtype == np.uint16 and image.ndim == 2:
+        h, w = image.shape
+        lanes, depth, ctype = 2, 16, 0   # a pixel's two big-endian bytes
+        x = image.astype(">u2").view(np.uint8).reshape(h, w, 2).astype(np.int16)
+    else:
+        h, w, _ = image.shape
+        lanes, depth, ctype = 3, 8, 2
+        x = image.reshape(h, w, 3).astype(np.int16)
     a = np.zeros_like(x)
     a[:, 1:] = x[:, :-1]
     b = np.zeros_like(x)
@@ -170,33 +227,13 @@ def write_png(path, rgb: np.ndarray, filters=None) -> None:
     c = np.zeros_like(x)
     c[1:, 1:] = x[:-1, :-1]
     cand = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - _paeth(a, b, c)])
-    cand = (cand & 0xFF).astype(np.uint8).reshape(5, h, 3 * w)
+    cand = (cand & 0xFF).astype(np.uint8).reshape(5, h, lanes * w)
     if filters is None:
         choice = np.abs(cand.view(np.int8).astype(np.int32)).sum(-1).argmin(0)
     else:
         choice = np.broadcast_to(np.asarray(filters, np.intp), (h,))
     rows = np.concatenate([choice[:, None].astype(np.uint8), cand[choice, np.arange(h)]], 1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
     with open(path, "wb") as fh:
-        fh.write(_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        fh.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
                  + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
-
-
-def read_image(path) -> np.ndarray:
-    """Image file -> (H, W, 3) RGB uint8. PNG only."""
-    if str(path).lower().endswith(".png"):
-        return read_png_rgb(path)
-    raise NotImplementedError(
-        f"{path}: only PNG frames are readable here (no JPEG decoder without libjpeg); "
-        "convert the frames to PNG")
-
-
-def image_size(path):
-    """(H, W) of an image file from its PNG header. PNG only, as read_image."""
-    if not str(path).lower().endswith(".png"):
-        read_image(path)
-    with open(path, "rb") as fh:
-        head = fh.read(24)
-    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
-        raise ValueError(f"{path}: not a PNG file")
-    w, h = struct.unpack(">II", head[16:24])
-    return h, w

@@ -5,14 +5,15 @@ binary readers), TartanAir, DAVIS (per-frame K .npy) and generic directory
 streams, plus the prefetching stream over path lists. Frames are cropped
 to multiples of 16 and the stream ends with a t = -1 sentinel.
 
-No cv2 or PIL: frames decode through data/png.py (zlib and numpy), which
-gives the RGB uint8 array cv2.imread + COLOR_BGR2RGB gives, for PNG only
-(JPEG raises), and the nearest-neighbour depth resize picks its source
-pixels by cv2.INTER_NEAREST's rule in numpy. Every stream decodes its
-frames ahead of its reader on worker processes (`_ahead`). The JAX
+Frames decode through data/image.py, which gives the RGB uint8 array
+cv2.imread + COLOR_BGR2RGB gives: PNG in numpy (data/png.py), JPEG through
+cv2 itself, loaded only when a JPEG is read. TUM's 16-bit depth PNGs read
+through data/png.py too, and the nearest-neighbour depth resize picks its
+source pixels by cv2.INTER_NEAREST's rule in numpy. Every stream decodes
+its frames ahead of its reader on worker processes (`_ahead`). The JAX
 package's native_rgbd_stream runs the native library's loader
-(libpng/libjpeg); this one decodes with data/png.py the same way and keeps
-that loader's crop, clip and ordering.
+(libpng/libjpeg); this one decodes with data/image.py the same way and
+keeps that loader's crop, clip and ordering.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Callable, Iterable, Iterator, Tuple
 import numpy as np
 
 from batrack_tpu_torch.data import png
+from batrack_tpu_torch.data.image import read_image
 
 TAG_FLOAT = 202021.25
 TUM_SCALING = 5000.0
@@ -94,7 +96,7 @@ def _ahead(fn: Callable, jobs: Iterable[tuple], workers: int = DECODE_WORKERS) -
 
 def _decoded(paths) -> Iterator[np.ndarray]:
     """The frames at `paths` as RGB uint8, decoded ahead (`_ahead`)."""
-    return _ahead(png.read_image, [(p,) for p in paths])
+    return _ahead(read_image, [(p,) for p in paths])
 
 
 def _glob_sorted(d: str, exts) -> list:
@@ -137,12 +139,8 @@ def sintel_depth_read(filename: str) -> np.ndarray:
 
 
 def tum_depth_read(filename: str) -> np.ndarray:
-    """TUM 16-bit depth PNG. The frame decoder (data/png.py) reads 8-bit
-    RGB only, cutting 16-bit samples to their high byte, so it cannot read
-    these; store the depth as .npy instead."""
-    raise NotImplementedError(
-        f"{filename}: 16-bit TUM depth PNGs are not readable here (the frame decoder "
-        "gives 8-bit RGB only); convert the depth maps to .npy (metres)")
+    """TUM 16-bit depth PNG -> metres (float64)."""
+    return png.read_png_gray(filename) / TUM_SCALING
 
 
 def load_depth_file(filename: str, mode: str = "sintel") -> np.ndarray:
@@ -287,7 +285,7 @@ def _prefetch_frame(image_path, depth_path):
     """One frame as the native loader makes it: the image cropped to
     multiples of 16, the depth (.npy or .dpt) read in float32, cut to the
     image's size and clipped to DEPTH_RANGE in float32."""
-    image = _crop16(png.read_image(image_path))
+    image = _crop16(read_image(image_path))
     path = str(depth_path)
     depth = sintel_depth_read(path) if path.endswith(".dpt") else np.load(path)
     depth = np.asarray(depth, np.float32)
@@ -301,8 +299,8 @@ def _prefetch_frame(image_path, depth_path):
 def native_rgbd_stream(
     image_paths, depth_paths, intrinsics_fn, num_threads: int = DECODE_WORKERS
 ) -> Iterator[Tuple]:
-    """Prefetched RGB-D stream over path lists (image .png; depth .npy or
-    Sintel .dpt).
+    """Prefetched RGB-D stream over path lists (image .png, .jpg or .jpeg;
+    depth .npy or Sintel .dpt).
 
     intrinsics_fn(t) -> (4,) per-frame intrinsics. Yields the same tuples as
     the other streams (depth_gt = depth), with decode, crop and clip running

@@ -7,7 +7,8 @@ from the median metric FOV.
 
 Two differences of means, not of results: the disparity resize is the
 numpy replica of cv2.INTER_NEAREST_EXACT (depth/cvresize.py), and the image
-size comes from the first frame's PNG header (data/png.py).
+size comes from the first frame's header (data/image.py::image_size),
+not from decoding it.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from batrack_tpu_torch.data.png import image_size
+from batrack_tpu_torch.data.image import image_size
 from batrack_tpu_torch.depth.cvresize import resize_nearest_exact as resize_nearest
 
 

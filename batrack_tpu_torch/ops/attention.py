@@ -31,6 +31,9 @@ the source note of the .cu file. On a CUDA tensor each wrapper launches the
 kernel or raises; on a CPU tensor it runs the plain version
 (`fused_qkv_attention_plain`, `vmem_attention_plain`,
 `flash_attention_plain`), which the kernel is held against on the card.
+The kernels have no backward (nor have the TPU kernels): on the card a
+wrapper raises when autograd would record through it, and gradients go
+through the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -130,6 +133,7 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
         return fused_qkv_attention_plain(qkv, heads, scale, key_mask, kv)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention: unsupported device {qkv.device}")
+    cuda_build.refuse_autograd("fused_qkv_attention", qkv, kv)
     B, N, C3 = qkv.shape
     C = C3 // 3
     if C3 % 3 or C % heads or C // heads != _KERNEL_HEAD_DIM:
@@ -174,6 +178,7 @@ def _one_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     for the TMA copies. Returns the output in q's shape."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    cuda_build.refuse_autograd(what, q, k, v)
     if not (q.shape == k.shape == v.shape) or q.ndim != ndim or q.shape[-1] != _KERNEL_HEAD_DIM:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"(the kernel takes equal {ndim}-d shapes ending in {_KERNEL_HEAD_DIM})")
@@ -247,6 +252,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if (q.device.type == "cuda" and r_q and r_k and r_k == r_v and q.shape == k.shape == v.shape
             and q.dtype == k.dtype == v.dtype and q.dtype in (torch.float32, torch.bfloat16)
             and q.device == k.device == v.device):
+        cuda_build.refuse_autograd("flash_attention", q, k, v)
         B, h, N, d = q.shape
         out = torch.empty((B, N, h * d), dtype=q.dtype, device=q.device)
         _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask, out, B, N, N, h, r_q, r_k,

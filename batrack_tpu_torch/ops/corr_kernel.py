@@ -10,7 +10,9 @@ not change across the I refinement iterations. `corr_sample` then returns
 the track-major (N, S, L*(2r+1)^2) layout the transformer input consumes.
 On a CUDA tensor it launches the kernel (one launch for all levels); on a
 CPU tensor it runs the plain version, `corr_sample_plain`, which the CUDA
-kernel is held against on the card.
+kernel is held against on the card. The kernel has no backward (nor has
+the TPU kernel): on the card the wrapper raises when autograd would record
+through it.
 
 The kernel keeps a level's map of one frame in shared memory when it fits
 (`resident_levels`: the coarse levels) and streams the windows of the
@@ -155,6 +157,7 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
     L = len(pyr.shapes)
     if pyr.flat.device.type != "cuda":
         raise ValueError(f"corr_sample: unsupported device {pyr.flat.device}")
+    cuda_build.refuse_autograd("corr_sample", pyr.flat, targets, coords)
     if (targets.dtype != torch.float32 or coords.dtype != torch.float32
             or pyr.flat.dtype not in (torch.bfloat16, torch.int8)):
         raise TypeError("corr_sample: needs f32 targets/coords and a bf16 or int8 pyramid")

@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,3 +85,13 @@ def check(status: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {status}")
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel launch: the
+    kernels have no backward, nor have their TPU kernels (the JAX package
+    trains through its plain paths). None entries are skipped."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; run it under torch.no_grad(), "
+            "or take gradients through the plain version on CPU tensors")

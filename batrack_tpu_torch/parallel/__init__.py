@@ -26,14 +26,16 @@ axes are sharded:
   (`sharded_slam_update`): one all_reduce of the assembled blocks per
   Gauss-Newton step and one all-gather of the keep mask per update.
 
-Only rank 0 writes artifacts (`BATrack.get_results(save_path=...)`; the
-CLI, which writes the rest, is not ported yet).
+Only rank 0 writes artifacts (`BATrack.get_results(save_path=...)` and
+the CLI's files).
+
+The slot BA's other layout, shard_mode="slots" (a block of ring slots per
+rank, `sharded_slot_ba.shard_slots`), is there as in the JAX package,
+where no caller selects it either.
 
 Deviations from the JAX package: batrack_tpu/parallel/sharded_tracker.py
 has no module here, since MDTracker(mesh=) itself shards each refinement
-step; `get_host_chip_mesh` is a flat group (parallel/mesh.py); the
-slot BA's shard_mode="slots" has no caller and is not ported (a mesh
-always means patch sharding).
+step; `get_host_chip_mesh` is a flat group (parallel/mesh.py).
 """
 
 from batrack_tpu_torch.parallel.mesh import (

@@ -15,17 +15,32 @@ size (which must divide M, as the JAX package's shard_map requires):
 The map filter then runs patch-sharded too (each rank reprojects its own
 patches) and one all-gather of the keep mask updates the replicated edge
 weights, before the replicated point-cloud refresh.
+
+`shard_slots` cuts the other layout, the JAX package's shard_mode="slots",
+which no caller of either package selects: each rank takes a contiguous
+block of ring slots with every patch, and the solver sums the pose blocks
+and the per-patch pieces over the ranks (ba/slot_solver.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from batrack_tpu_torch.ba.slot_solver import SlotGraph
 from batrack_tpu_torch.geometry import projective
 from batrack_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_rows
 from batrack_tpu_torch.slam.state import SLAMState, StaticDims
 from batrack_tpu_torch.slam.update import cloud_window_frames, dual_ba, update_point_cloud
 from batrack_tpu_torch.utils.config import SlamConfig
+
+
+def shard_slots(graph: SlotGraph, mesh: Mesh) -> SlotGraph:
+    """This rank's contiguous block of ring slots, for shard_mode="slots":
+    the slot axis is padded to a multiple of the world size with empty
+    slots (slot_start -1, no valid edge), which add nothing to any sum."""
+    targets, weights, valid = (shard_rows(x, mesh) for x in graph[:3])
+    return SlotGraph(targets=targets, weights=weights, valid=valid,
+                     slot_start=shard_rows(graph.slot_start + 1, mesh) - 1)
 
 
 def _map_filter_keep(poses, patches_fm, intrinsics, slot_start, targets, dims: StaticDims,

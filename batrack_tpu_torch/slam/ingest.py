@@ -3,13 +3,16 @@ model (counterpart of batrack_tpu/slam/ingest.py).
 
 Random draws: torch cannot reproduce jax.random, so the patch generators
 take their random arrays from the caller (`draws`); BATrack fills them from
-its torch.Generator, or from a hook that tests fill with JAX's draws.
+its torch.Generator, or from a hook that tests fill with JAX's draws. The
+`sift` generator runs on the host with cv2's detector and a numpy Generator,
+as in the JAX package, so the same seed gives the same patches.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from batrack_tpu_torch.geometry import se3
@@ -99,6 +102,39 @@ def generate_patches_grid_grad(
     return torch.stack([xg.reshape(-1), yg.reshape(-1)], dim=-1)
 
 
+def generate_patches_sift(image_np: np.ndarray, *, M: int, ht: int, wd: int,
+                          rng: np.random.Generator, margin: int = 16) -> np.ndarray:
+    """`sift` patch sampling on the host (batrack.py:246-279): cv2 SIFT
+    keypoints of the contrast-stretched grey frame, margin-inset, shuffled
+    and cut to M; a shortfall is padded with uniform random points placed
+    before the keypoints (the y range is the height's, as the JAX package
+    fixed it). image_np: (H, W, 3) RGB. Returns (M, 2) float32 pixel
+    coords."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("slam.PATCH_GEN='sift' needs OpenCV (cv2) for its detector") from e
+
+    gray = cv2.cvtColor(np.asarray(image_np).astype(np.uint8), cv2.COLOR_RGB2GRAY)
+    lo, hi = int(gray.min()), int(gray.max())
+    gray = ((gray.astype(np.float32) - lo) * (255.0 / max(hi - lo, 1))).astype(np.uint8)
+    kps = cv2.SIFT_create().detect(gray, None)
+    kp = np.array([k.pt for k in kps], np.float32).reshape(-1, 2)
+    if len(kp):
+        keep = ((kp[:, 0] > margin) & (kp[:, 0] < wd - margin)
+                & (kp[:, 1] > margin) & (kp[:, 1] < ht - margin))
+        kp = kp[keep]
+        rng.shuffle(kp)
+        kp = kp[:M]
+    if len(kp) < M:
+        diff = M - len(kp)
+        x = rng.integers(margin, wd - margin, size=diff)
+        y = rng.integers(margin, ht - margin, size=diff)
+        pad = np.stack([x, y], axis=-1).astype(np.float32)
+        kp = np.concatenate([pad, kp], axis=0)
+    return kp.astype(np.float32)
+
+
 def generate_patches_uniform(*, M, ht, wd, device) -> torch.Tensor:
     """`uniform` grid patch sampling."""
     m = int(round(M ** 0.5))
@@ -142,9 +178,11 @@ def ingest_frame(
     motion_damping: float,
     mark_valid: bool,
     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    coords_override: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One frame into the buffers, updating `state` in place. Returns the
-    (M, 2) patch coords."""
+    (M, 2) patch coords. coords_override: the (M, 2) coords that `sift`
+    found on the host (generate_patches_sift)."""
     M = dims.M
     image = image.to(torch.float32)
 
@@ -162,8 +200,12 @@ def ingest_frame(
         coords = torch.stack([draws[0].to(torch.float32), draws[1].to(torch.float32)], -1)
     elif patch_gen == "uniform":
         coords = generate_patches_uniform(M=M, ht=dims.ht, wd=dims.wd, device=image.device)
+    elif patch_gen == "sift":
+        if coords_override is None:
+            raise ValueError("PATCH_GEN='sift' needs host-computed coords (coords_override)")
+        coords = coords_override.to(device=image.device, dtype=torch.float32)
     else:
-        raise NotImplementedError(f"PATCH_GEN={patch_gen!r} is not ported")
+        raise NotImplementedError(f"PATCH_GEN={patch_gen!r}")
 
     rows = slice(n * M, (n + 1) * M)
     disp = init_patch_depth(coords, depth)

@@ -16,8 +16,12 @@ With `mesh` (parallel/mesh.py::get_mesh) the loop runs on every rank of a
 process group, each with the full state; the backend update runs
 patch-sharded (parallel/sharded_slot_ba.py), or edge-sharded with the flat
 solver (parallel/sharded_ba.py), and a tracker adapter built with the same
-mesh shards the tracks. Options outside the ported slices (sift patches,
-other motion models) raise NotImplementedError.
+mesh shards the tracks.
+
+PATCH_GEN="sift" runs cv2's detector on the host frame with a numpy
+Generator seeded as the JAX package seeds its own, so both packages draw
+the same patches. With a `visualizer` (utils/visualizer.py::TrackVisualizer)
+every frame and each append's tracks are handed to it on the host.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from batrack_tpu_torch.slam.frontend import (
     build_tracker_input,
     gate_and_append,
 )
-from batrack_tpu_torch.slam.ingest import ingest_frame, make_draws
+from batrack_tpu_torch.slam.ingest import generate_patches_sift, ingest_frame, make_draws
 from batrack_tpu_torch.slam.keyframe import (
     motion_magnitude_pair,
     remove_keyframe,
@@ -57,14 +61,6 @@ DrawHook = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 logger = logging.getLogger(__name__)
 
 
-def _check_supported(cfg: Config) -> None:
-    s = cfg.slam
-    if s.PATCH_GEN == "sift":
-        raise NotImplementedError("slam.PATCH_GEN='sift' is not ported yet")
-    if s.MOTION_MODEL != "DAMPED_LINEAR":
-        raise NotImplementedError(f"slam.MOTION_MODEL={s.MOTION_MODEL!r}")
-
-
 class BATrack:
     """Online dynamic-scene visual odometry (reference BATRACK equivalent)."""
 
@@ -74,11 +70,11 @@ class BATrack:
         """device: where the state lives and every stage runs (default
         CUDA; raises when CUDA is asked for and absent). seed: the
         torch.Generator behind the patch generator's random draws, unless
-        `draw_hook` is set (tests set it to inject JAX's draws); every rank
-        of a mesh must use the same. mesh: a parallel.mesh.Mesh on `device`
+        `draw_hook` is set (tests set it to inject JAX's draws), and of the
+        numpy Generator behind `sift` patches; every rank of a mesh must
+        use the same. mesh: a parallel.mesh.Mesh on `device`
         (slam.mesh_devices, when set, must equal its size); None runs on
         one device."""
-        _check_supported(cfg)
         self.device = resolve_device(device)
         self.mesh = mesh
         slam = cfg.slam
@@ -124,6 +120,8 @@ class BATrack:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.draw_hook: Optional[DrawHook] = None
+        self._np_rng = np.random.default_rng(seed)  # host-side (sift patches)
+        self.visualizer = None                      # optional TrackVisualizer
 
         self.n = 0               # frames in buffer
         self.counter = 0         # total frames seen
@@ -161,15 +159,19 @@ class BATrack:
         return (img.to(self.device, non_blocking=True),
                 dep.to(self.device, non_blocking=True))
 
-    def __call__(self, tstamp, image, depth, intrinsics) -> None:
+    def __call__(self, tstamp, image, depth, intrinsics, host_image=None) -> None:
         """Track one frame. image: (H, W, 3) uint8 (other types are clipped
         to 0..255 and truncated to uint8, as the JAX package does); depth:
         (H, W) or (H, W, 1) metric; intrinsics: (4,) [fx, fy, cx, cy].
         image and depth may be numpy arrays or the tensors upload_frame
-        returns."""
+        returns. host_image: the same frame as a numpy array, for the host
+        work (sift patches, the track video) when `image` is already on the
+        device; without it that work copies the device frame back."""
         if (self.n + 1) >= self.dims.N:
             raise RuntimeError(
                 f"Buffer size {self.dims.N} exhausted; increase slam.BUFFER_SIZE")
+        if host_image is None and isinstance(image, np.ndarray):
+            host_image = image
         image = torch.as_tensor(image)
         if image.dtype != torch.uint8:
             image = image.clamp(0, 255).to(torch.uint8)
@@ -180,11 +182,22 @@ class BATrack:
         intrinsics = self._to_device(intrinsics, torch.float32)
 
         slam = self.cfg.slam
+        image_np = None
+        if self.visualizer is not None or slam.PATCH_GEN == "sift":
+            image_np = self._host_frame(image, host_image)
+        if self.visualizer is not None:
+            self.visualizer.add_frame(image_np)
         if self.draw_hook is not None:
             draws = self.draw_hook(self.counter)
         else:
             draws = make_draws(slam.PATCH_GEN, self.dims.M, self.dims.ht,
                                self.dims.wd, self.generator)
+        coords_override = None
+        if slam.PATCH_GEN == "sift":
+            with self.timer.timed("sift"):
+                coords_override = torch.from_numpy(generate_patches_sift(
+                    image_np, M=self.dims.M, ht=self.dims.ht, wd=self.dims.wd,
+                    rng=self._np_rng)).to(self.device)
         mark_valid = (self.n % slam.kf_stride == 0) and not self.is_initialized
         with full_fp32():
             with self.timer.timed("ingest"):
@@ -192,7 +205,7 @@ class BATrack:
                     self.state, image, depth, intrinsics, self.n, self.counter,
                     self.dims, patch_gen=slam.PATCH_GEN,
                     motion_damping=slam.MOTION_DAMPING, mark_valid=mark_valid,
-                    draws=draws,
+                    draws=draws, coords_override=coords_override,
                 )
             self.tlist.append(tstamp)
             self.counter += 1
@@ -210,6 +223,18 @@ class BATrack:
                 if slam.use_keyframe and (self.n - 1) % slam.kf_stride == 0:
                     with self.timer.timed("keyframe"):
                         self._keyframe()
+
+    @staticmethod
+    def _host_frame(image: torch.Tensor, host_image) -> np.ndarray:
+        """The frame as uint8 numpy on the host, as the JAX package hands it
+        to the host work: the caller's array (clipped and truncated to
+        uint8 like the device frame), else a copy of the device frame."""
+        if host_image is None:
+            return image.cpu().numpy()
+        host_image = np.asarray(host_image)
+        if host_image.dtype != np.uint8:
+            host_image = np.clip(host_image, 0, 255).astype(np.uint8)
+        return host_image
 
     # ------------------------------------------------------------------
     def _alloc_slot(self) -> int:
@@ -271,6 +296,22 @@ class BATrack:
             )
         self.append_count += 1
         self._last_append_n = self.n
+        if self.visualizer is not None:
+            with self.timer.timed("track_video"):
+                self.visualizer.add_track(self._track_payload(slot))
+
+    def _track_payload(self, slot: int) -> dict:
+        """One append's tracks for the video, in the JAX package's layout:
+        {fid, targets (S, NS*M, 2), weights (S, NS*M), static (S, NS*M)},
+        copied from the slot's edge rows to the host once."""
+        dims, st = self.dims, self.state
+        S, NS, M = dims.S_slam, dims.n_src, dims.M
+        rows = slice(slot * dims.edges_per_slot, (slot + 1) * dims.edges_per_slot)
+        packed = torch.cat([st.e_target[rows, :2], st.e_weight[rows, :1],
+                            st.e_static[rows, None]], 1).cpu().numpy()
+        packed = np.moveaxis(packed.reshape(NS, M, S, 4), 2, 0).reshape(S, NS * M, 4)
+        return {"fid": self.n, "targets": packed[..., :2], "weights": packed[..., 2],
+                "static": packed[..., 3]}
 
     def update(self) -> None:
         with full_fp32(), self.timer.timed("ba_update"):

@@ -36,7 +36,8 @@ def dual_ba(poses: torch.Tensor, patches_fm: torch.Tensor, monodisp_fm: torch.Te
     base_f = max(n - dims.patch_window, 0)
     kw = dict(window=dims.window, patch_window=dims.patch_window, patches_per_frame=dims.M,
               kf_stride=dims.kf_stride, bounds=(0.0, 0.0, float(dims.wd), float(dims.ht)),
-              ep=cfg.BA_EP, lmbda=cfg.BA_LMBDA, alpha=cfg.BA_ALPHA, loss=cfg.LOSS, mesh=mesh)
+              ep=cfg.BA_EP, lmbda=cfg.BA_LMBDA, alpha=cfg.BA_ALPHA, loss=cfg.LOSS, mesh=mesh,
+              shard_mode="patches")
     for _ in range(cfg.ITER):
         for w, structure_only in ((weights_pose, False), (weights, True)):
             graph = SlotGraph(targets=targets, weights=w, valid=valid, slot_start=slot_start)

@@ -181,7 +181,11 @@ class MDTracker(nn.Module):
 
         fmaps (S, C, h4, w4); coords (S, N, 3) in grid units; feat_init
         (S, N, C); concat (N, S, 2) pre-scrambled mask/vis channels.
-        Returns (coord_pred, depth_pred, static_out, vis_logits, dyn_logit).
+        Returns (coord_pred, depth_pred, static_out, vis_logits, dyn_logit,
+        iter_preds): iter_preds holds each iteration's coord and depth
+        predictions and each static iteration's output, for the training
+        losses. The coords are detached at each iteration, as in the JAX
+        package and the reference's training graph (md_tracker.py:249).
         """
         p, mesh = self.p, self.mesh
         S, C, h4, w4 = fmaps.shape
@@ -259,37 +263,46 @@ class MDTracker(nn.Module):
 
         coords = coords_init
         coord_pred = depth_pred = None
+        coord_preds, depth_preds, static_preds = [], [], []
         for _ in range(p.iters):
+            coords = coords.detach()
             d_coords, d_feats = one_iter(coords, ffeats, pos_embed, self.updateformer)
             ffeats = feat_update(ffeats, d_feats)
             coords = coords + d_coords
             coord_pred, depth_pred = denorm(coords)
+            coord_preds.append(coord_pred)
+            depth_preds.append(depth_pred)
 
         vis_e = self.vis_predictor(ffeats)[..., 0].T               # (S, N) logits
         dyn_logit = self.motion_label_block(ffeats[None])[0, :, 0]  # (N,)
         dyn_mask = torch.sigmoid(dyn_logit)
+        if p.dynamic_mask_detach:
+            dyn_mask = dyn_mask.detach()
 
-        coords_total = coords
+        coords_total = coords.detach()
         coords_dyn = coords_dyn_init
         static_out = None
         n_static = p.static_iters if static_iters is None else static_iters
         for _ in range(n_static):
-            coords_static = coords_total - coords_dyn
+            coords_dyn = coords_dyn.detach()
+            coords_static = (coords_total - coords_dyn).detach()
             d_coords, d_feats = one_iter(coords_static, ffeats_static, pos_embed_static,
                                          self.updateformer_dyn)
             ffeats_static = feat_update(ffeats_static, d_feats)
             coords_dyn = coords_dyn + d_coords
             out_xy, out_d = denorm(coords_total - coords_dyn * dyn_mask[None, :, None])
             static_out = torch.cat([out_xy, out_d[..., None]], dim=-1)
+            static_preds.append(static_out)
         if static_out is None:
             out_xy, out_d = denorm(coords_total)
             static_out = torch.cat([out_xy, out_d[..., None]], dim=-1)
-        return coord_pred, depth_pred, static_out, vis_e, dyn_logit
+        return (coord_pred, depth_pred, static_out, vis_e, dyn_logit,
+                (coord_preds, depth_preds, static_preds))
 
     # ------------------------------------------------------------------
     def forward(self, rgbds: torch.Tensor, queries: torch.Tensor,
                 prev_fmaps: Optional[torch.Tensor] = None, reuse: int = 0,
-                static_iters: Optional[int] = None):
+                static_iters: Optional[int] = None, train: bool = False):
         """Full sliding-window forward (md_tracker.py:416-671).
 
         rgbds (T, 4, H, W) rgb 0..255 + metric depth; queries (N, 4)
@@ -300,6 +313,15 @@ class MDTracker(nn.Module):
 
         Returns (traj (T, N, 2), depth (T, N), traj_static (T, N, 3),
         vis (T, N) sigmoid, dynamic (T, N) sigmoid, fmaps of the last window).
+
+        train=True appends the JAX package's train_data dict (the
+        reference's is_train outputs, md_tracker.py:646-667), stacked over
+        windows: inds (n_wind,) numpy, active (n_wind, N), track_mask
+        (n_wind, S, N), coords (n_wind, I, S, N, 2), depths (n_wind, I, S,
+        N), statics (n_wind, I_static, S, N, 3), vis_logits (n_wind, S, N)
+        and dyn_logits (n_wind, N). Gradients flow through the plain
+        versions of K1 and K2 (CPU tensors); on the card their wrappers
+        raise when autograd records, since the kernels have no backward.
         """
         p = self.p
         T, _, H, W = rgbds.shape
@@ -347,6 +369,7 @@ class MDTracker(nn.Module):
         prev_active = torch.zeros((N,), dtype=torch.bool, device=dev)
         fmaps = None
 
+        train_windows = []
         for w in range(n_wind):
             ind = w * (S // 2)
             frame_ids = torch.as_tensor(np.clip(ind + np.arange(S), 0, T - 1), device=dev)
@@ -389,11 +412,20 @@ class MDTracker(nn.Module):
                                        cnt)[inv_perm]
             key_mask = active if n_wind > 1 else None
 
-            coord_p, depth_p, static_p, vis_p, dyn_logit = self.forward_iteration(
+            coord_p, depth_p, static_p, vis_p, dyn_logit, iter_preds = self.forward_iteration(
                 fmaps, coords_init, coords_dyn_init, feat_init, concat,
                 d_near, d_far, Dz, key_mask, static_iters)
             vis_p = vis_p.float()
             dyn_logit = dyn_logit.float()
+            if train:
+                cps, dps, sps = iter_preds
+                train_windows.append({
+                    "ind": ind, "active": active, "track_mask": track_mask,
+                    "coords": torch.stack(cps), "depths": torch.stack(dps),
+                    "statics": (torch.stack(sps) if sps
+                                else torch.zeros((0, S, N, 3), dtype=f32, device=dev)),
+                    "vis_logits": vis_p, "dyn_logits": dyn_logit,
+                })
 
             # window results into the global timeline for active queries
             S_live = min(S, T - ind)
@@ -428,4 +460,11 @@ class MDTracker(nn.Module):
                 vis_init = torch.where(active[None, :], carried_vis, vis_init)
             prev_active = active
 
-        return (traj_e, depth_e, static_e, torch.sigmoid(vis_e), torch.sigmoid(dyn_e), fmaps)
+        outputs = (traj_e, depth_e, static_e, torch.sigmoid(vis_e), torch.sigmoid(dyn_e), fmaps)
+        if not train:
+            return outputs
+        train_data = {"inds": np.asarray([tw["ind"] for tw in train_windows])}
+        for k in ("active", "track_mask", "coords", "depths", "statics", "vis_logits",
+                  "dyn_logits"):
+            train_data[k] = torch.stack([tw[k] for tw in train_windows])
+        return outputs + (train_data,)

@@ -1,12 +1,130 @@
-"""The Rerun 4D viewer of refined results, the counterpart of
-batrack_tpu/utils/visualizer.py's generate_point_cloud and vis_rerun
-(main/rerun_visualizer.py). The track-overlay video (TrackVisualizer, cv2
-drawing and an mp4 writer) is not ported.
+"""Visualisation of SLAM results, the counterpart of
+batrack_tpu/utils/visualizer.py: the track-overlay video (TrackVisualizer:
+cv2 circles and lines over each frame, written as an mp4v mp4) and the
+Rerun 4D viewer of refined results (generate_point_cloud, vis_rerun;
+main/rerun_visualizer.py). cv2 is imported inside the functions that draw
+and write, and its absence raises a RuntimeError there.
 """
 
 from __future__ import annotations
 
+import colorsys
+import os
+from typing import Dict, List, Optional
+
 import numpy as np
+
+
+def _cv2(feature: str):
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(f"{feature} needs OpenCV (cv2)") from e
+    return cv2
+
+
+def _colormap_rainbow(n: int) -> np.ndarray:
+    """n RGB colours around the hue wheel (the reference's 'rainbow' mode)."""
+    return np.array([colorsys.hsv_to_rgb(i / max(n, 1), 0.9, 1.0) for i in range(n)]) * 255.0
+
+
+class TrackVisualizer:
+    """Collects frames and each append's tracks; renders the overlay video.
+
+    add_track takes the payload BATrack builds per append: {fid, targets
+    (S, Q, 2), weights (S, Q), static (S, Q)}, numpy, in the JAX package's
+    (S, NS*M, ...) layout."""
+
+    def __init__(self, save_dir: str = "./results", fps: int = 10, linewidth: int = 2,
+                 tracks_leave_trace: int = 8, mode: str = "rainbow"):
+        self.save_dir = save_dir
+        self.fps = fps
+        self.linewidth = linewidth
+        self.trace = tracks_leave_trace
+        self.mode = mode
+        self.frames: List[np.ndarray] = []
+        self.tracks: List[Dict] = []
+
+    def add_frame(self, frame) -> None:
+        self.frames.append(frame)
+
+    def add_track(self, track: Dict) -> None:
+        self.tracks.append(track)
+
+    def draw_tracks_on_frames(self) -> List[np.ndarray]:
+        """Overlay each append's tracks onto copies of its window frames: a
+        dot per live track (green static, red dynamic, else its rainbow
+        colour) and a trace over up to `tracks_leave_trace` earlier frames.
+        (The JAX package draws on the frames it was given when they are
+        contiguous uint8, which are the caller's arrays.)"""
+        cv2 = _cv2("drawing the track video")
+        out = [np.array(f, np.uint8) for f in self.frames]
+        for track in self.tracks:
+            fid = int(track["fid"])
+            targets = np.asarray(track["targets"], np.float32)   # (S, Q, 2)
+            weights = np.asarray(track.get("weights", np.ones(targets.shape[:2])))
+            static = track.get("static")
+            static = None if static is None else np.asarray(static)
+            S, Q = targets.shape[:2]
+            colors = _colormap_rainbow(Q)
+            first = fid - S
+            for s in range(S):
+                f_idx = first + s
+                if not (0 <= f_idx < len(out)):
+                    continue
+                img = out[f_idx]
+                for q in range(Q):
+                    if weights[s, q] <= 0:
+                        continue
+                    x, y = targets[s, q]
+                    if not (0 <= x < img.shape[1] and 0 <= y < img.shape[0]):
+                        continue
+                    if static is not None:
+                        color = (0, 200, 0) if static[s, q] > 0.5 else (0, 0, 220)
+                    else:
+                        color = tuple(int(c) for c in colors[q])
+                    cv2.circle(img, (int(x), int(y)), self.linewidth, color, -1)
+                    for dt in range(1, min(self.trace, s) + 1):
+                        x0, y0 = targets[s - dt, q]
+                        x1, y1 = targets[s - dt + 1, q]
+                        if weights[s - dt, q] <= 0:
+                            break
+                        cv2.line(img, (int(x0), int(y0)), (int(x1), int(y1)), color,
+                                 max(1, self.linewidth // 2))
+        return out
+
+    def save_video(self, filename: str = "tracks") -> Optional[str]:
+        """Render and write `save_dir/filename.mp4` (mp4v); returns its path,
+        None when no frame was added. Raises when cv2 cannot open the
+        writer (the JAX package would return the path of a file it never
+        wrote)."""
+        if not self.frames:
+            return None
+        cv2 = _cv2("writing the track video")
+        os.makedirs(self.save_dir, exist_ok=True)
+        frames = self.draw_tracks_on_frames()
+        h, w = frames[0].shape[:2]
+        path = os.path.join(self.save_dir, f"{filename}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), self.fps, (w, h))
+        if not writer.isOpened():
+            raise RuntimeError(f"{path}: cv2.VideoWriter cannot open an mp4v writer here "
+                               "(no codec in this OpenCV build)")
+        for f in frames:
+            writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        writer.release()
+        return path
+
+
+def video_frame_count(path) -> int:
+    """The frames a video file holds, read back one by one with
+    cv2.VideoCapture (0 for a file it cannot open)."""
+    cv2 = _cv2("reading a video")
+    cap = cv2.VideoCapture(str(path))
+    count = 0
+    while cap.read()[0]:
+        count += 1
+    cap.release()
+    return count
 
 
 def generate_point_cloud(img, depth, intrinsics, cam_T_world, stride: int = 4):

@@ -97,6 +97,24 @@ Phases, each of which fails the run when it fails:
    the trajectory within that witness of b's; d. the edge-sharded flat
    update (parallel/sharded_ba.py) on a one-rank group against b's CPU
    update.
+10. the DAVIS JPEG demo (scripts/demo/run_demo.sh's journey on DAVIS-shaped
+   input): 40 frames of the scene at 480x854 written as JPEG (quality 90)
+   into JPEGImages/480p/<scene>, decoded through data/image.py (cv2);
+   `cli.infer_depth` and `cli.infer_metric_depth` at ViT-L width (seeded
+   weights written as the released files) and `cli.align_depth`, no kernel
+   launching; `cli.run_slam` at davis_demo with PATCH_GEN=sift and
+   save_video=true: K1 and K2 counted around the call against the code's 4
+   and 24 per append, every launch of the first append held against the
+   plain versions (K1 1e-4, K2 two bf16 ulps), the patches ingested on one
+   frame held equal to generate_patches_sift's output for that frame and
+   generator state, the mp4 read back frame by frame; `cli.run_refine` and
+   `cli.vis_results`. Prints each network's token grid, ms per forward and
+   TFLOP/s at this aspect, sift ms per frame and keypoints kept against
+   M=400, the CLI's frames/s (the first append's checks taken out) and
+   stage ms (stream wait, sift, track_video), and peak memory.
+
+Phase 4 also prints the tracker forward's TFLOP (utils/flops.py) and
+TFLOP/s at its synchronised ms per append.
 
 With --ranks, under torchrun (one process per GPU), it runs only the
 multi-device path at the group's world size: a tracker forward held
@@ -142,7 +160,8 @@ taps and of the resident levels' map copies.
 
 It then prints one {"kernels": [...]} line (phase 9 adds the keyframe
 path's launches to K1's and K2's entries, K1's check and timing at that
-path's shape under "keyframe_path" and K2's masked ones under "masked"),
+path's shape under "keyframe_path" and K2's masked ones under "masked";
+phase 10 its launches and first-append checks under "davis_jpeg_path"),
 the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -935,6 +954,7 @@ def phase_slam(cfg, images, depths, dev, profile=False):
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
     from batrack_tpu_torch.slam import BATrack
     from batrack_tpu_torch.tracker import MDTrackerAdapter
+    from batrack_tpu_torch.utils.flops import tracker_forward_flops_from_params
     from batrack_tpu_torch.utils.profiling import StageTimer
 
     s = cfg.slam
@@ -981,6 +1001,12 @@ def phase_slam(cfg, images, depths, dev, profile=False):
         f"{STEADY_FROM} warm-up frames incl. init; whole run {t_end - t0:.1f} s)")
     log(f"  stage ms per call (synchronised, frames {STAGE_FROM}-{FRAMES - 1}): "
         f"{json.dumps(stage_ms)}")
+    flops = tracker_forward_flops_from_params(slam.tracker.model, NQ, *cfg.model.interp_shape,
+                                              new_frames=s.kf_stride)["total"]
+    log(f"  tracker forward: {flops / 1e12:.3f} TFLOP (utils/flops.py, {NQ} tracks, "
+        f"{cfg.model.interp_shape[0]}x{cfg.model.interp_shape[1]}, {s.kf_stride} new frames "
+        f"encoded), {flops / 1e9 / stage_ms['tracker']:.2f} TFLOP/s at the synchronised "
+        f"{stage_ms['tracker']:.3f} ms per append")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     log(f"  edges with weight > 0: {int((slam.state.e_weight[:, 0] > 0).sum())} (random "
         "weights put no track over the visibility gate; [ba] runs live edges)")
@@ -1773,7 +1799,7 @@ def phase_pipeline(dev):
         pngs = sorted(dirs["rgb"].glob("*.png"))
         t0 = time.perf_counter()
         for path in pngs:
-            png.read_image(path)
+            png.read_png_rgb(path)
         decode_ms = 1e3 * (time.perf_counter() - t0) / len(pngs)
         filters = np.zeros(5, np.int64)
         for path in pngs:
@@ -2162,6 +2188,75 @@ def run_cli(cli, argv, cls=None):
     return rc, wall, ms, torch.cuda.max_memory_allocated() / 2 ** 30, out.getvalue()
 
 
+def write_stage1_checkpoints(root):
+    """The seeded stage-1 networks (stage1_networks) written under `root`
+    as the released files: (da2, ud, DA2 .pth path, UniDepth
+    model.safetensors path)."""
+    from batrack_tpu_torch.utils.tensorfile import write_safetensors
+
+    da2, ud = stage1_networks()
+    da2_ckpt = root / f"depth_anything_v2_{STAGE1_ARCH}.pth"
+    ud_ckpt = root / "model.safetensors"
+    torch.save(da2.state_dict(), da2_ckpt)
+    write_safetensors(ud_ckpt, ud.state_dict())
+    return da2, ud, da2_ckpt, ud_ckpt
+
+
+def run_stage1_clis(dev, img_dir, depth_dir, scene, da2_ckpt, ud_ckpt, stats):
+    """cli.infer_depth and cli.infer_metric_depth over the FRAMES frames of
+    img_dir into depth_dir (run_mono_depth.sh's layout), each forward timed
+    by CUDA events: ms per forward (the median after the first), TFLOP/s
+    from stats[name]["tflop"], the CLI's time per frame and peak memory go
+    into stats[name]."""
+    from batrack_tpu_torch.cli import infer_depth, infer_metric_depth
+    from batrack_tpu_torch.depth import dpt, unidepth
+
+    runs = (("infer_depth", infer_depth, dpt.DepthAnythingV2, "DA2",
+             ["--encoder", STAGE1_ARCH, "--checkpoint", str(da2_ckpt), "--img_dir", str(img_dir),
+              "--out_dir", str(depth_dir / "depthAny_disp" / scene), "--device", str(dev)]),
+            ("infer_metric_depth", infer_metric_depth, unidepth.UniDepthV2, "UniDepthV2",
+             ["--arch", STAGE1_ARCH, "--checkpoint", str(ud_ckpt), "--img_dir", str(img_dir),
+              "--out_dir", str(depth_dir / "unidepthv2" / scene), "--device", str(dev)]))
+    for cli_name, cli, cls, name, argv in runs:
+        rc, wall, ms, peak, _ = run_cli(cli, argv, cls)
+        if rc != 0 or len(ms) != FRAMES:
+            raise AssertionError(f"{cli_name} returned {rc} after {len(ms)} forwards")
+        st = stats[name]
+        steady = statistics.median(ms[1:])
+        st.update(ms=steady, first_ms=ms[0], cli_s_per_frame=wall / FRAMES, peak_gib=peak,
+                  tflops=st["tflop"] / (steady / 1e3))
+        log(f"  {cli_name} ({STAGE1_ARCH}, TF32): {steady:.2f} ms per forward (median of "
+            f"{FRAMES - 1} after the first, {ms[0]:.1f} ms; CUDA events around the forward), "
+            f"{st['tflops']:.1f} TFLOP/s achieved; whole CLI {wall:.2f} s for {FRAMES} "
+            f"frames, {1e3 * wall / FRAMES:.1f} ms per frame (load, decode, preprocess, "
+            f"forward, .npy/.npz); peak device memory {peak:.2f} GiB")
+
+
+def refine_and_view(dev, savedir, scene, shape):
+    """cli.run_refine at run_dense.sh's defaults on savedir/scene's
+    results.pkl (dmaps_scaled must be finite, (FRAMES,) + shape + (1,)),
+    then cli.vis_results on its output (rc 1 only without rerun-sdk, with
+    its summary). Returns (refine wall s, peak GiB, vis_results rc,
+    vis_results output)."""
+    from batrack_tpu_torch.cli import run_refine, vis_results
+
+    rc, wall, _, peak, _ = run_cli(run_refine, [
+        "--result_dir", str(savedir), "--grid_size", str(DENSE_GRID), "--scenes", scene,
+        "--niter", str(DENSE_NITER), "--device", str(dev)])
+    refined = savedir / scene / "results_refined.pkl"
+    with open(refined, "rb") as f:
+        dense = pickle.load(f)
+    if (rc != 0 or dense["dmaps_scaled"].shape != (FRAMES,) + tuple(shape) + (1,)
+            or not np.isfinite(dense["dmaps_scaled"]).all()):
+        raise AssertionError("run_refine wrote no finite dmaps_scaled of the frames' shape")
+    rc, _, _, _, out = run_cli(vis_results, ["--result_path", str(refined)])
+    rerun_absent = importlib.util.find_spec("rerun") is None
+    if not ((rc == 0 or (rc == 1 and rerun_absent))
+            and f"cams_T_world: ({FRAMES}, 4, 4)" in out):
+        raise AssertionError(f"vis_results returned {rc} (rerun absent: {rerun_absent}):\n{out}")
+    return wall, peak, rc, out
+
+
 def phase_demo(dev, profile=False):
     """Phase 8: the demo chain through the port's CLIs on phase 7's scene,
     laid out as scripts/demo/*.sh expect: the stage-1 networks at ViT-L
@@ -2171,13 +2266,11 @@ def phase_demo(dev, profile=False):
     davis_demo on the aligned priors (K1 and K2 counted: 4 and 24 per
     append), run_refine at run_dense.sh's defaults and vis_results."""
     import batrack_tpu_torch.slam as slam_pkg
-    from batrack_tpu_torch.cli import (align_depth, infer_depth, infer_metric_depth,
-                                       run_refine, run_slam, vis_results)
+    from batrack_tpu_torch.cli import align_depth, run_slam
     from batrack_tpu_torch.data.png import write_png
-    from batrack_tpu_torch.depth import dpt, unidepth
+    from batrack_tpu_torch.depth import dpt
     from batrack_tpu_torch.utils.config import load_config
     from batrack_tpu_torch.utils.synth import make_scene
-    from batrack_tpu_torch.utils.tensorfile import write_safetensors
 
     config = Path(__file__).resolve().parent / "configs" / "davis_demo.yaml"
     cfg = load_config(str(config))
@@ -2191,11 +2284,7 @@ def phase_demo(dev, profile=False):
         for t in range(FRAMES):
             write_png(img_dir / f"{t:05d}.png", frames[t])
         t0 = time.perf_counter()
-        da2, ud = stage1_networks()
-        da2_ckpt = root / f"depth_anything_v2_{STAGE1_ARCH}.pth"
-        ud_ckpt = root / "model.safetensors"
-        torch.save(da2.state_dict(), da2_ckpt)
-        write_safetensors(ud_ckpt, ud.state_dict())
+        da2, ud, da2_ckpt, ud_ckpt = write_stage1_checkpoints(root)
         n_params = {"DA2": sum(p.numel() for p in da2.parameters()),
                     "UniDepthV2": sum(p.numel() for p in ud.parameters())}
         log(f"[demo] stage-1 networks at {STAGE1_ARCH} width from seed {STAGE1_SEED} "
@@ -2218,25 +2307,7 @@ def phase_demo(dev, profile=False):
 
         depth_dir = root / "Monodepth"
         zero_all_launches()
-        runs = (("infer_depth", infer_depth, dpt.DepthAnythingV2, "DA2",
-                 ["--encoder", STAGE1_ARCH, "--checkpoint", str(da2_ckpt), "--img_dir", str(img_dir),
-                  "--out_dir", str(depth_dir / "depthAny_disp" / DEMO_SCENE), "--device", str(dev)]),
-                ("infer_metric_depth", infer_metric_depth, unidepth.UniDepthV2, "UniDepthV2",
-                 ["--arch", STAGE1_ARCH, "--checkpoint", str(ud_ckpt), "--img_dir", str(img_dir),
-                  "--out_dir", str(depth_dir / "unidepthv2" / DEMO_SCENE), "--device", str(dev)]))
-        for cli_name, cli, cls, name, argv in runs:
-            rc, wall, ms, peak, _ = run_cli(cli, argv, cls)
-            if rc != 0 or len(ms) != FRAMES:
-                raise AssertionError(f"{cli_name} returned {rc} after {len(ms)} forwards")
-            st = stats[name]
-            steady = statistics.median(ms[1:])
-            st.update(ms=steady, first_ms=ms[0], cli_s_per_frame=wall / FRAMES, peak_gib=peak,
-                      tflops=st["tflop"] / (steady / 1e3))
-            log(f"  {cli_name} ({STAGE1_ARCH}, TF32): {steady:.2f} ms per forward (median of "
-                f"{FRAMES - 1} after the first, {ms[0]:.1f} ms; CUDA events around the forward), "
-                f"{st['tflops']:.1f} TFLOP/s achieved; whole CLI {wall:.2f} s for {FRAMES} "
-                f"frames, {1e3 * wall / FRAMES:.1f} ms per frame (load, decode, preprocess, "
-                f"forward, .npy/.npz); peak device memory {peak:.2f} GiB")
+        run_stage1_clis(dev, img_dir, depth_dir, DEMO_SCENE, da2_ckpt, ud_ckpt, stats)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             rc = align_depth.main(["--data_dir", str(root / "davis"), "--depth_dir",
@@ -2300,26 +2371,226 @@ def phase_demo(dev, profile=False):
         if res["cams_T_world"].shape != (FRAMES, 4, 4) or not np.isfinite(res["cams_T_world"]).all():
             raise AssertionError("run_slam's results.pkl has no finite trajectory of the frames")
 
-        rc, wall, _, peak, _ = run_cli(run_refine, [
-            "--result_dir", str(savedir), "--grid_size", str(DENSE_GRID), "--scenes", DEMO_SCENE,
-            "--niter", str(DENSE_NITER), "--device", str(dev)])
-        refined = savedir / DEMO_SCENE / "results_refined.pkl"
-        with open(refined, "rb") as f:
-            dense = pickle.load(f)
-        if (rc != 0 or dense["dmaps_scaled"].shape != (FRAMES, HT, WD, 1)
-                or not np.isfinite(dense["dmaps_scaled"]).all()):
-            raise AssertionError("run_refine wrote no finite dmaps_scaled of the frames' shape")
+        wall, peak, rc, out = refine_and_view(dev, savedir, DEMO_SCENE, (HT, WD))
         log(f"  run_refine (grid {DENSE_GRID}, {DENSE_NITER} steps): {wall:.2f} s, peak device "
             f"memory {peak:.2f} GiB")
-
-        rc, _, _, _, out = run_cli(vis_results, ["--result_path", str(refined)])
-        rerun_absent = importlib.util.find_spec("rerun") is None
-        if not ((rc == 0 or (rc == 1 and rerun_absent))
-                and f"cams_T_world: ({FRAMES}, 4, 4)" in out):
-            raise AssertionError(f"vis_results returned {rc} (rerun absent: {rerun_absent}):\n{out}")
-        log(f"  vis_results: rc {rc} (rerun-sdk {'absent' if rerun_absent else 'present'}); "
+        log(f"  vis_results: rc {rc} (rerun-sdk "
+            f"{'absent' if importlib.util.find_spec('rerun') is None else 'present'}); "
             + "; ".join(ln.strip() for ln in out.splitlines() if ln.strip()))
     return stats
+
+
+# ---------------------------------------------------------------- the DAVIS JPEG demo
+# DAVIS 480p frames are 854 wide JPEGs; the streams crop them to 848. The
+# tracker resizes every window to interp_shape, so K1 and K2 keep
+# davis_demo's shapes; the patch coordinates and the BA's image size change
+DAVIS_HT, DAVIS_WD = 480, 854
+DAVIS_WD_CROP = DAVIS_WD - DAVIS_WD % 16
+DAVIS_SCENE = "synth"
+JPEG_QUALITY = 90
+SIFT_FRAME = 10        # the frame whose ingested patches are held against generate_patches_sift
+
+
+def phase_davis_jpeg(dev):
+    """Phase 10: scripts/demo/run_demo.sh's journey on DAVIS-shaped JPEG
+    frames: FRAMES frames of the synthetic scene at 480x854 written as
+    JPEG (quality 90) into JPEGImages/480p/<scene>; infer_depth and
+    infer_metric_depth at ViT-L width (seeded weights written as the
+    released files) and align_depth, no kernel launching; run_slam at
+    davis_demo with PATCH_GEN=sift and save_video=true (K1 and K2 counted
+    against the code's 4 and 24 per append, and held against their plain
+    versions at every launch of the first append; the patches ingested on
+    frame SIFT_FRAME held equal to generate_patches_sift's output for that
+    frame and generator state; the mp4 read back frame by frame);
+    run_refine at run_dense.sh's defaults and vis_results."""
+    import batrack_tpu_torch.slam as slam_pkg
+    from batrack_tpu_torch.cli import align_depth, run_slam
+    from batrack_tpu_torch.data.image import image_size, read_image, write_jpeg
+    from batrack_tpu_torch.depth import dpt
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention_plain
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample_plain
+    from batrack_tpu_torch.slam import system
+    from batrack_tpu_torch.slam.ingest import generate_patches_sift
+    from batrack_tpu_torch.tracker import blocks, mdtracker
+    from batrack_tpu_torch.utils.config import full_fp32, load_config
+    from batrack_tpu_torch.utils.synth import make_scene
+    from batrack_tpu_torch.utils.visualizer import video_frame_count
+
+    t_phase = time.perf_counter()
+    config = Path(__file__).resolve().parent / "configs" / "davis_demo.yaml"
+    cfg = load_config(str(config), ["slam.PATCH_GEN=sift"])
+    _, k1_per, k2_per = launches_per_append(cfg)
+    M = cfg.slam.PATCHES_PER_FRAME
+    intr = np.array([500.0, 500.0, DAVIS_WD / 2, DAVIS_HT / 2], np.float32)
+    images, _, _ = make_scene(FRAMES, DAVIS_HT, DAVIS_WD, intr)
+    frames = np.clip(images, 0, 255).astype(np.uint8)
+    del images
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="batrack_davis_") as tmp:
+        root = Path(tmp)
+        data_dir = root / "JPEGImages" / "480p"
+        img_dir = data_dir / DAVIS_SCENE
+        img_dir.mkdir(parents=True)
+        t0 = time.perf_counter()
+        for t in range(FRAMES):
+            write_jpeg(img_dir / f"{t:05d}.jpg", frames[t], JPEG_QUALITY)
+        first = read_image(img_dir / "00000.jpg")
+        if not image_size(img_dir / "00000.jpg") == first.shape[:2] == (DAVIS_HT, DAVIS_WD):
+            raise AssertionError("the JPEG header's size is not the decoded frame's")
+        log(f"[davis jpeg] {FRAMES} frames {DAVIS_HT}x{DAVIS_WD} written as JPEG (quality "
+            f"{JPEG_QUALITY}) in {time.perf_counter() - t0:.2f} s; frame 0 decodes "
+            f"{np.abs(first.astype(int) - frames[0]).mean():.2f} levels from the array written")
+        da2, ud, da2_ckpt, ud_ckpt = write_stage1_checkpoints(root)
+        x_da2, x_ud = stage1_inputs(first)
+        for name, model, x in (("DA2", da2, x_da2), ("UniDepthV2", ud, x_ud)):
+            grid = (x.shape[1] // dpt.PATCH, x.shape[2] // dpt.PATCH)
+            card = copy.deepcopy(model).to(dev)
+            flops = forward_flops(card, x.to(dev))
+            del card
+            stats[name] = {"input": list(x.shape[1:3]), "grid": list(grid),
+                           "tokens": grid[0] * grid[1] + 1, "tflop": flops / 1e12}
+            log(f"  {name}: input {x.shape[1]}x{x.shape[2]}, a {grid[0]}x{grid[1]} patch grid, "
+                f"{stats[name]['tokens']} tokens, {flops / 1e12:.3f} TFLOP per forward")
+        del da2, ud, x_da2, x_ud
+        torch.cuda.empty_cache()
+
+        depth_dir = root / "Monodepth"
+        zero_all_launches()
+        run_stage1_clis(dev, img_dir, depth_dir, DAVIS_SCENE, da2_ckpt, ud_ckpt, stats)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = align_depth.main(["--data_dir", str(data_dir), "--depth_dir", str(depth_dir),
+                                   "--save_name", "unidepth_da"])
+        stage1 = all_launches()
+        if rc != 0 or any(stage1.values()):
+            raise AssertionError(f"stage 1: align_depth returned {rc}; launches {stage1} "
+                                 "(no kernel may launch)")
+        aligned = sorted((depth_dir / "unidepth_da" / DAVIS_SCENE).glob("*.npy"))
+        a0 = np.load(aligned[0])
+        if len(aligned) != FRAMES or a0.shape != (DAVIS_HT, DAVIS_WD) or not np.isfinite(a0).all():
+            raise AssertionError(f"aligned priors: {len(aligned)} of shape {a0.shape}")
+        log(f"  align_depth: {len(aligned)} aligned depths {a0.shape}; stage-1 kernel launches "
+            f"{json.dumps(stage1)} (all must be 0)")
+
+        savedir, made, sift_log = root / "out", [], []
+        checks, check_s = {"k1": [], "k2": []}, [0.0]
+        sample, attend, sift = mdtracker.corr_sample, blocks.fused_qkv_attention, \
+            system.generate_patches_sift
+
+        class Observed(slam_pkg.BATrack):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        def recording_sift(image_np, *, M, ht, wd, rng):
+            state = copy.deepcopy(rng.bit_generator.state)
+            out = sift(image_np, M=M, ht=ht, wd=wd, rng=rng)
+            keep = len(sift_log) == SIFT_FRAME
+            sift_log.append((image_np.copy() if keep else None, state if keep else None,
+                             int((out != np.round(out)).any(1).sum())))
+            return out
+
+        def sampling(pyr, targets, coords, radius):
+            out = sample(pyr, targets, coords, radius)
+            if len(checks["k1"]) < k1_per:  # every launch of the first append
+                t = time.perf_counter()
+                with full_fp32():
+                    checks["k1"].append(max_err(out, corr_sample_plain(pyr, targets, coords,
+                                                                       radius)))
+                check_s[0] += time.perf_counter() - t
+            return out
+
+        def attending(qkv, heads, scale, key_mask=None, kv=None):
+            out = attend(qkv, heads, scale, key_mask, kv)
+            if len(checks["k2"]) < k2_per:
+                t = time.perf_counter()
+                ref = fused_qkv_attention_plain(qkv, heads, scale, key_mask, kv)
+                checks["k2"].append((max_err(out, ref), bf16_tol(ref), tuple(qkv.shape)))
+                check_s[0] += time.perf_counter() - t
+            return out
+
+        argv = ["--config", str(config), "--device", str(dev), "model.init_dir=",
+                f"data.imagedir={img_dir}", f"data.savedir={savedir}",
+                f"data.depthdir={depth_dir / 'unidepth_da' / DAVIS_SCENE}",
+                f"data.depthdir_gt={depth_dir / 'unidepth_da' / DAVIS_SCENE}",
+                f"data.calib={depth_dir / 'unidepth_da_intrinsics' / DAVIS_SCENE}",
+                f"data.name={DAVIS_SCENE}", "slam.PATCH_GEN=sift", "save_video=true",
+                "save_trajectory=true", "save_plot=false", "save_results=true"]
+        zero_all_launches()
+        held = torch.cuda.memory_allocated() / 2 ** 30  # left by what ran before, in the peak
+        with patched(slam_pkg, "BATrack", Observed), \
+                patched(system, "generate_patches_sift", recording_sift), \
+                patched(mdtracker, "corr_sample", sampling), \
+                patched(blocks, "fused_qkv_attention", attending):
+            rc, wall, _, peak, _ = run_cli(run_slam, argv)
+        launches = all_launches()
+        off_path_launches()
+        slam = made[0] if made else None
+        appends = slam.append_count if slam else 0
+        if (rc != 0 or appends != len(range(0, FRAMES, cfg.slam.kf_stride))
+                or launches["corr_sample"] != k1_per * appends
+                or launches["fused_qkv_attention"] != k2_per * appends):
+            raise AssertionError(f"run_slam returned {rc}; K1 and K2 launched {launches} over "
+                                 f"{appends} appends, not {k1_per} and {k2_per} per append")
+        stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
+        fps = FRAMES / (wall - check_s[0])
+        kept = [n for _, _, n in sift_log]
+        log(f"  run_slam (davis_demo, PATCH_GEN=sift, save_video=true), {FRAMES} frames "
+            f"{slam.dims.ht}x{slam.dims.wd}: {wall:.2f} s, {fps:.3f} frames/s without the first "
+            f"append's kernel checks ({check_s[0]:.2f} s); launches {json.dumps(launches)} over "
+            f"{appends} appends ({k1_per} and {k2_per} per append from the code); peak device "
+            f"memory {peak:.2f} GiB, {held:.2f} GiB of it allocated before the CLI started")
+        log(f"  CLI stage ms per call (host clock, unsynchronised): {json.dumps(stage_ms)}")
+        log(f"  sift: {stage_ms.get('sift', float('nan')):.2f} ms per frame; keypoints kept per "
+            f"frame (non-integer coordinates) min {min(kept)}, median "
+            f"{statistics.median(kept)}, max {max(kept)} against M={M}")
+        if len(sift_log) != FRAMES or (slam.dims.ht, slam.dims.wd) != (DAVIS_HT, DAVIS_WD_CROP):
+            raise AssertionError(f"{len(sift_log)} sift calls for {FRAMES} frames at "
+                                 f"{slam.dims.ht}x{slam.dims.wd}")
+        img, state, _ = sift_log[SIFT_FRAME]
+        rng = np.random.default_rng()
+        rng.bit_generator.state = state
+        again = generate_patches_sift(img, M=M, ht=slam.dims.ht, wd=slam.dims.wd, rng=rng)
+        ingested = slam.state.patches[SIFT_FRAME * M:(SIFT_FRAME + 1) * M, :2].cpu().numpy()
+        if not np.array_equal(ingested, again):
+            raise AssertionError(f"frame {SIFT_FRAME}: the ingested patches are not "
+                                 "generate_patches_sift's output")
+        log(f"  frame {SIFT_FRAME}: the {M} ingested patch coordinates equal "
+            "generate_patches_sift's output for that frame and generator state")
+        k1_err = max(checks["k1"])
+        check(f"K1 on the JPEG path's first append, {len(checks['k1'])} launches, vs plain",
+              k1_err, TOL["k1"])
+        k2_err, k2_tol, k2_shape = max(checks["k2"], key=lambda c: c[0] / c[1])
+        check(f"K2 on the JPEG path's first append, {len(checks['k2'])} launches at qkv "
+              f"{k2_shape}, bf16 vs plain (worst against its limit)", k2_err, k2_tol)
+        if len(checks["k1"]) != k1_per or len(checks["k2"]) != k2_per:
+            raise AssertionError(f"checked {len(checks['k1'])} K1 and {len(checks['k2'])} K2 "
+                                 "launches on the first append")
+        video = savedir / DAVIS_SCENE / "sift.mp4"
+        n_video = video_frame_count(video) if video.exists() else 0
+        log(f"  {video.name}: {n_video} frames read back (cv2.VideoCapture) of {FRAMES} fed, "
+            f"{video.stat().st_size / 2 ** 20:.2f} MiB" if video.exists() else "  no mp4 written")
+        if n_video != FRAMES:
+            raise AssertionError(f"the track video holds {n_video} frames, not {FRAMES}")
+        poses = np.loadtxt(savedir / DAVIS_SCENE / "batrack_traj.txt")
+        if poses.shape[0] != FRAMES or not np.isfinite(poses).all():
+            raise AssertionError(f"trajectory {poses.shape} not finite")
+
+        wall_refine, peak_refine, rc, _ = refine_and_view(dev, savedir, DAVIS_SCENE,
+                                                          (DAVIS_HT, DAVIS_WD_CROP))
+        log(f"  run_refine (grid {DENSE_GRID}, {DENSE_NITER} steps): {wall_refine:.2f} s, peak "
+            f"device memory {peak_refine:.2f} GiB; vis_results rc {rc}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 10: {seconds:.1f} s")
+    return {"stage1": stats, "frames_per_s": fps, "run_slam_s": wall, "stage_ms": stage_ms,
+            "sift_keypoints_kept": {"min": min(kept), "median": statistics.median(kept),
+                                    "max": max(kept), "M": M},
+            "launches": launches, "appends": appends,
+            "k1_first_append": {"max_abs_err": k1_err, "launches_checked": len(checks["k1"])},
+            "k2_first_append": {"max_abs_err": k2_err, "tolerance": k2_tol,
+                                "launches_checked": len(checks["k2"])},
+            "mp4_frames": n_video, "peak_gib": peak, "held_before_gib": held,
+            "refine_s": wall_refine,
+            "seconds": seconds}
 
 
 DECODE_VARIANTS = ("filtered", "unfiltered", "filtered_threads", "filtered_inline")
@@ -2373,7 +2644,7 @@ def main_decode_ab(rounds: int) -> int:
             pngs = sorted((root / name / "rgb").glob("*.png"))
             t0 = time.perf_counter()
             for t, path in enumerate(pngs):
-                if not np.array_equal(png.read_image(path), frames[t]):
+                if not np.array_equal(png.read_png_rgb(path), frames[t]):
                     raise AssertionError(f"{path} decodes to another array")
             record({"dataset": name, "row_filters": sum(map(png_row_filters, pngs)).tolist(),
                     "decode_ms_per_frame": 1e3 * (time.perf_counter() - t0) / len(pngs)})
@@ -2534,6 +2805,8 @@ def main() -> int:
     log(f"[stage 1] {json.dumps(stage1)}")
     kf = phase_keyframe(images, depths, poses_gt, dev, gen)
     log(f"[keyframe] {json.dumps(kf)}")
+    davis = phase_davis_jpeg(dev)
+    log(f"[davis jpeg] {json.dumps(davis)}")
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]
@@ -2552,6 +2825,11 @@ def main() -> int:
     k2["launches_keyframe_path"] = kf["launches"]["fused_qkv_attention"]
     k2["masked_launches_keyframe_path"] = kf["launches"]["fused_qkv_attention_masked"]
     k2["masked"] = kf["k2_masked"]
+    # phase 10: the DAVIS JPEG demo's launches and its first append's checks
+    k1["launches_davis_jpeg_path"] = davis["launches"]["corr_sample"]
+    k1["davis_jpeg_path"] = davis["k1_first_append"]
+    k2["launches_davis_jpeg_path"] = davis["launches"]["fused_qkv_attention"]
+    k2["davis_jpeg_path"] = davis["k2_first_append"]
     print(json.dumps({"kernels": [k1, k1_mxu, k1_int8, k2, k2kv, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,7 @@ import batrack_tpu.utils.evaluation as jeval
 import batrack_tpu.utils.traj as jtraj
 from batrack_tpu.geometry import se3 as jse3
 from batrack_tpu.tracker.convert import load_checkpoint as jload_checkpoint
-from batrack_tpu_torch.data import png, streams
+from batrack_tpu_torch.data import image, png, streams
 from batrack_tpu_torch.geometry import se3
 from batrack_tpu_torch.tracker import MDTracker, TrackerParams, load_checkpoint
 from batrack_tpu_torch.tracker.convert import state_dict_from_flax
@@ -182,23 +182,26 @@ def _png_cases(tmp_path):
 
 
 def test_png_reader_matches_cv2(tmp_path):
-    """data/png.py, the frame decoder of the streams, against cv2.imread +
-    COLOR_BGR2RGB on every case, bitwise; JPEG raises."""
+    """data/png.py, the PNG half of the streams' frame reader, against
+    cv2.imread + COLOR_BGR2RGB on every case, bitwise, directly and through
+    data/image.py, with the header's size; a JPEG is no PNG to it."""
     for name, path in _png_cases(tmp_path).items():
         ref = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
-        got = png.read_image(path)
+        got = png.read_png_rgb(path)
         assert got.dtype == np.uint8, name
         np.testing.assert_array_equal(got, ref, err_msg=name)
+        np.testing.assert_array_equal(image.read_image(path), ref, err_msg=name)
+        assert image.image_size(path) == ref.shape[:2], name
     cv2.imwrite(str(tmp_path / "a.jpg"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="only PNG"):
-        png.read_image(tmp_path / "a.jpg")
+    with pytest.raises(ValueError, match="not a PNG"):
+        png.read_png_rgb(tmp_path / "a.jpg")
 
 
 @pytest.mark.parametrize("filters", ["libpng", 0, 1, 2, 3, 4, "random", "runs"])
 def test_png_row_filters_match_cv2(tmp_path, filters):
     """png.write_png with each row filter, libpng's per-row choice, a random
     filter per row and runs of Up rows around Average/Paeth spans: cv2 reads
-    back the array written, and so does png.read_image."""
+    back the array written, and so does png.read_png_rgb."""
     rng = np.random.default_rng(4)
     h, w = 45, 61
     yy, xx = np.mgrid[0:h, 0:w]
@@ -209,7 +212,7 @@ def test_png_row_filters_match_cv2(tmp_path, filters):
     path = tmp_path / "f.png"
     png.write_png(path, img, rows)
     np.testing.assert_array_equal(cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB), img)
-    np.testing.assert_array_equal(png.read_image(path), img)
+    np.testing.assert_array_equal(png.read_png_rgb(path), img)
 
 
 def test_resize_nearest_matches_cv2():
@@ -232,9 +235,11 @@ def test_readers_and_tum_depth(dataset, tmp_path):
     np.savez(tmp_path / "d.npz", depth=np.ones((4, 5)))
     np.testing.assert_array_equal(streams.load_depth_file(tmp_path / "d.npz"),
                                   jstreams.load_depth_file(tmp_path / "d.npz"))
-    cv2.imwrite(str(tmp_path / "d.png"), np.full((4, 5), 5000, np.uint16))
-    with pytest.raises(NotImplementedError, match="16-bit TUM depth"):
-        streams.load_depth_file(tmp_path / "d.png", mode="tum")
+    cv2.imwrite(str(tmp_path / "d.png"),
+                np.random.default_rng(5).integers(0, 65536, (4, 5)).astype(np.uint16))
+    got = streams.load_depth_file(tmp_path / "d.png", mode="tum")
+    assert got.dtype == np.float64 and got.shape == (4, 5, 1)
+    np.testing.assert_array_equal(got, jstreams.load_depth_file(tmp_path / "d.png", mode="tum"))
 
 
 # ---------------------------------------------------------------- trajectories

@@ -263,13 +263,16 @@ def test_align_depth_sequence_matches_jax():
 
 
 def test_align_depth_dirs_reads_the_png_header(tmp_path):
-    from batrack_tpu_torch.data.png import image_size, write_png
+    """The alignment's image size comes from the first frame's header (PNG
+    or JPEG); a JPEG without a frame header raises."""
+    from batrack_tpu_torch.data.image import image_size
+    from batrack_tpu_torch.data.png import write_png
 
     rng = np.random.default_rng(7)
     write_png(tmp_path / "0000.png", rng.integers(0, 256, (30, 44, 3), dtype=np.uint8))
     assert image_size(tmp_path / "0000.png") == (30, 44)
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="PNG"):
+    with pytest.raises(ValueError, match="start-of-frame"):
         image_size(tmp_path / "x.jpg")
 
 

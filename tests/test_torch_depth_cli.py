@@ -214,11 +214,17 @@ def test_demo_chain_through_the_port(tmp_path, capsys, monkeypatch):
 
 
 def test_cli_frames_must_be_png(files, tmp_path):
-    """The port reads PNG only: a JPEG frame raises, as in the streams."""
+    """Frames are PNG or JPEG (data/image.py, as the streams read them): a
+    JPEG frame goes through the CLI, and one that cv2 cannot read raises
+    (test_torch_jpeg_cli.py holds the JPEG CLIs against the JAX CLIs)."""
     img_dir = tmp_path / "frames"
     img_dir.mkdir()
     cv2.imwrite(str(img_dir / "00000.jpg"), np.zeros(HW + (3,), np.uint8))
-    with pytest.raises(NotImplementedError, match="PNG"):
-        infer_depth.main(["--img_dir", str(img_dir), "--out_dir", str(tmp_path / "o"),
-                          "--checkpoint", str(files / "da2_vits.pth"), "--encoder", "vits",
-                          "--input_size", "126", "--device", "cpu"])
+    args = ["--img_dir", str(img_dir), "--out_dir", str(tmp_path / "o"),
+            "--checkpoint", str(files / "da2_vits.pth"), "--encoder", "vits",
+            "--input_size", "126", "--device", "cpu"]
+    assert infer_depth.main(args) == 0
+    assert np.load(tmp_path / "o" / "00000.npy").shape == HW
+    (img_dir / "00001.jpg").write_bytes(b"\xff\xd8 not a jpeg")
+    with pytest.raises(ValueError, match="cv2 cannot read"):
+        infer_depth.main(args)

@@ -402,3 +402,45 @@ def test_flash_attention_kernel_matches_plain_on_gpu(rng, cuda, layout, dtype, m
         ref = flash_attention_plain(q, k, v, d ** -0.5, mask)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+def test_autograd_guard_names_the_kernel():
+    """The guard each wrapper runs before a launch: it raises when autograd
+    would record (grad mode on and an input that requires grad), and
+    passes under no_grad or for inputs that need no gradient."""
+    from batrack_tpu_torch.ops.cuda_build import refuse_autograd
+
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="fused_qkv_attention: the CUDA kernel has no backward"):
+        refuse_autograd("fused_qkv_attention", x, None)
+    refuse_autograd("corr_sample", torch.zeros(3), None)
+    with torch.no_grad():
+        refuse_autograd("corr_sample", x)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_raise_under_autograd_on_gpu(rng, cuda):
+    """K1, K2, K3 and K4 have no backward (nor have the TPU kernels): on
+    the card each wrapper raises when autograd would record through it,
+    launches nothing, and launches under no_grad."""
+    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=2, C=128, N=40, H=24, W=32))
+    pyr = pack_pyramid(corr.build_pyramid(fm, 2))
+    qkv = torch.randn(2, 130, 3 * 384, device=cuda)
+    q = torch.randn(2, 8, 130, 48, device=cuda)
+    calls = {
+        "corr_sample": (corr_sample, lambda g: (pyr, tg.requires_grad_(g), xy, 3)),
+        "fused_qkv_attention": (fused_qkv_attention,
+                                lambda g: (qkv.requires_grad_(g), 8, 0.1)),
+        "vmem_attention": (vmem_attention,
+                           lambda g: (q[0].requires_grad_(g), q[0], q[0], 0.1)),
+        "flash_attention": (flash_attention, lambda g: (q.requires_grad_(g), q, q, 0.1)),
+    }
+    for name, (fn, args) in calls.items():
+        before = fn.launches
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+            fn(*args(True))
+        assert fn.launches == before, name
+        with torch.no_grad():
+            fn(*args(True))
+        assert fn.launches == before + 1, name
+        args(False)

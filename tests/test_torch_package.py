@@ -3,9 +3,11 @@ module of batrack_tpu), its entry points run on CUDA unless the caller asks
 for the CPU, and its copies of the JAX package's jax-free helpers (config,
 synthetic scene) agree with the originals."""
 
+import ast
 import dataclasses
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -34,8 +36,9 @@ def _submodules():
 
 def test_import_leaves_jax_and_batrack_tpu_out():
     """Importing every module loads no JAX, Flax or batrack_tpu module, and
-    none of the optional libraries the card's machine lacks or the port does
-    without (scipy, cv2, PIL, matplotlib, safetensors)."""
+    none of the optional libraries: matplotlib, which the card's machine
+    lacks, scipy, PIL and safetensors, which the port does without, and
+    cv2, which it loads only inside the functions that need it."""
     assert {"batrack_tpu_torch.parallel.mesh", "batrack_tpu_torch.parallel.shard_kernels",
             "batrack_tpu_torch.parallel.sharded_slot_ba", "batrack_tpu_torch.cli.run_slam",
             "batrack_tpu_torch.cli.run_refine", "batrack_tpu_torch.cli.eval_depth",
@@ -83,12 +86,47 @@ def test_sources_name_no_jax_flax_or_batrack_tpu():
     assert not offenders, "\n".join(offenders)
 
 
+# cv2 may be imported only inside functions of these modules, for the
+# features that need it (JPEG frames, sift patches, the track video)
+CV2_MODULES = ("data/image.py", "slam/ingest.py", "utils/visualizer.py")
+
+
+def _library_rule_offenders(pkg: Path, extra_files=()):
+    """Imports that break the library rule in the package at `pkg` (and
+    `extra_files`): scipy, PIL and safetensors anywhere; cv2 anywhere but
+    inside a function of CV2_MODULES."""
+    root = pkg.parent
+    offenders = []
+    for f in sorted(pkg.rglob("*.py")) + list(extra_files):
+        tree = ast.parse(f.read_text())
+        in_function = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                in_function.update(id(n) for n in ast.walk(node) if n is not node)
+        rel = f.relative_to(root).as_posix()
+        allowed = rel.startswith(pkg.name + "/") and rel[len(pkg.name) + 1:] in CV2_MODULES
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                libs = {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                libs = {(node.module or "").split(".")[0]}
+            else:
+                continue
+            for lib in libs & {"scipy", "PIL", "safetensors", "cv2"}:
+                if lib != "cv2" or not (allowed and id(node) in in_function):
+                    offenders.append(f"{rel}:{node.lineno}: import {lib}")
+    return offenders
+
+
 def test_sources_import_no_optional_library_at_module_level():
-    """scipy, cv2, PIL and matplotlib are not on the card's machine, and
-    safetensors is not promised there: no module of the package, nor
-    chip_smoke.py, imports one at module level (utils/traj.py imports
-    matplotlib inside plot_trajectory, which skips the plot without it), and
-    none imports cv2, PIL, scipy or safetensors anywhere."""
+    """matplotlib is not on the card's machine, and safetensors is not
+    promised there; cv2 (4.13.0) and PIL (12.2.0) are, but the port loads
+    cv2 only for the features that need it. No module of the package, nor
+    chip_smoke.py, imports one of them at module level (utils/traj.py
+    imports matplotlib inside plot_trajectory, which skips the plot
+    without it). None imports scipy, PIL or safetensors anywhere, and cv2
+    only inside functions of data/image.py (JPEG frames), slam/ingest.py
+    (sift patches) and utils/visualizer.py (the track video)."""
     pattern = re.compile(r"^(import|from)\s+(scipy|cv2|PIL|matplotlib|safetensors)\b")
     root = PKG.parent
     files = sorted(PKG.rglob("*.py")) + [root / "chip_smoke.py"]
@@ -98,12 +136,29 @@ def test_sources_import_no_optional_library_at_module_level():
                  for i, line in enumerate(f.read_text().splitlines(), 1)
                  if pattern.search(line)]
     assert not offenders, "\n".join(offenders)
-    anywhere = re.compile(r"^\s*(import|from)\s+(scipy|cv2|PIL|safetensors)\b")
-    offenders = [f"{f.relative_to(root)}:{i}: {line}"
-                 for f in files
-                 for i, line in enumerate(f.read_text().splitlines(), 1)
-                 if anywhere.search(line)]
+    assert all((PKG / m).exists() for m in CV2_MODULES)
+    offenders = _library_rule_offenders(PKG, [root / "chip_smoke.py"])
     assert not offenders, "\n".join(offenders)
+
+
+@pytest.mark.parametrize("plant", ["module_level_cv2", "cv2_elsewhere", "pil_in_function"])
+def test_library_rule_catches_a_planted_import(tmp_path, plant):
+    """The rule's check on a copy of the package with one import planted: a
+    module-level `import cv2` in data/image.py, cv2 inside a function of a
+    module outside the allow-list, and PIL inside an allowed function."""
+    pkg = tmp_path / PKG.name
+    shutil.copytree(PKG, pkg, ignore=shutil.ignore_patterns("__pycache__", "csrc"))
+    assert not _library_rule_offenders(pkg)
+    target, code = {
+        "module_level_cv2": ("data/image.py", "import cv2\n"),
+        "cv2_elsewhere": ("data/streams.py", "\ndef _decode(path):\n    import cv2\n"),
+        "pil_in_function": ("utils/visualizer.py", "\ndef _load(p):\n    from PIL import Image\n"),
+    }[plant]
+    path = pkg / target
+    text = path.read_text()
+    path.write_text(code + text if plant == "module_level_cv2" else text + code)
+    offenders = _library_rule_offenders(pkg)
+    assert len(offenders) == 1 and offenders[0].startswith(f"{PKG.name}/{target}:"), offenders
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
