@@ -58,21 +58,41 @@
 // The kernel takes radius 3 (8x8 windows, the tracker's corr_radius) and
 // C = 128; each block has one producer and six consumer warps.
 //
-// The TPU kernel's two options are two more kernels beside this one, each
-// with its own entry point, so the bf16 kernel above carries no branch for
-// them:
-//   * int8 maps (fmap_dtype="int8", per-level symmetric scale amax/127):
-//     one warp per (track, frame, level); each lane reads a char4 of the
-//     tap, 128 bytes per tap instead of 256, and the level's scale is read
-//     from device memory and folded into 1/sqrt(C). The bytes fall from
-//     about 88 MB to about 63 MB at the davis_demo shapes.
-//   * the tensor-core contraction (contract="mxu"): the window's (2r+2)^2
-//     = 64 taps x 128 channels are the A operand of mma.sync.m16n8k16 (bf16,
-//     f32 accumulate), the target rounded to bf16 is column 0 of B (n padded
-//     to 8 with zeros): 4 row tiles x 8 k-steps per window, one column of
-//     eight useful. The channel order inside a k-step is free (it is a sum),
-//     so each lane loads 16 contiguous bytes of a tap row and A and B take
-//     the same permutation. Out-of-map taps enter the product as zero rows.
+// The TPU kernel's two options are two more instantiations of this kernel,
+// each with its own entry point and launch counter, on the same pipeline:
+//   * the tensor-core contraction (contract="mxu", corr_sample_pyramid_mxu):
+//     one target term instead of three. Column 0 of B is the target rounded
+//     to bf16 (round to nearest even), columns 1-2 are zero. B has eight
+//     columns in m16n8k16 either way, so it costs what the three terms do.
+//     Same packed bf16 pyramid, same plan;
+//   * int8 maps (fmap_dtype="int8", corr_sample_pyramid_int8; per-level
+//     symmetric scale amax/127): a tap of 128 channels is 128 bytes, one
+//     row of the 128-byte swizzle, so a streamed window is ONE box of a
+//     uint8 tensor map (128 x 8 x 8 x 1, 8 KB) and a resident map one box
+//     of H x W rows. At davis_demo levels 2-3 stay resident; level 1
+//     (48x64x128 = 384 KB) still does not fit in 227 KB and is streamed.
+//     The halved window is spent on less shared memory, not on more slots:
+//     the ring keeps 12 slots (96 KB), so two blocks fit on an SM (12
+//     consumer warps instead of 6, under 146 registers a thread). On the
+//     H100 that beats one block per SM with the same ring, and a ring of 24
+//     slots at one block per SM (scripts/torch_corr_ab.py --int8-layouts,
+//     PERF.md). The contraction stays on the bf16 tensor cores with
+//     the three-term float32 target: every int8 value is exact in bf16, so
+//     A's fragments are converted in registers after ldmatrix (s8x4_bf16,
+//     exact, no conversion instruction) and the products stay exact. The
+//     level's scale (a device array, read in the kernel) is folded into
+//     1/sqrt(C). ldmatrix moves 16-bit elements, so over int8 rows each
+//     lane gets four channels' bytes; the channel order inside a k-step is
+//     free (it is a sum), and A and B share this one (tig = lane % 4): one
+//     ldmatrix.x4 over 16-byte chunks 2p and 2p+1 feeds k-steps 2p + j
+//     (j = 0, 1), whose logical k 2tig+e is channel 32p + 4tig + 2j + e and
+//     k 2tig+8+e channel 32p + 16 + 4tig + 2j + e (e = 0, 1).
+//     What bounds it: the conversion, 11 instructions per four values,
+//     adds about 700 instructions to a window's 1100 or so, and a window's
+//     work is bound by instruction throughput once its bytes are halved, so
+//     int8 maps are slower here than bf16 ones (PERF.md).
+// Every instantiation takes radius 3 only: another radius would need the
+// window side as a template parameter and ring slots sized to fit it.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_runtime.h>
@@ -83,21 +103,19 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;  // the variants: one warp per window
-constexpr int kC = 128;            // channels, the tracker's latent width
+constexpr int kC = 128;  // channels, the tracker's latent width
 
-// ------------------------------------------------------------ main kernel
-constexpr int kRadius = 3;                       // the tracker's corr_radius
-constexpr int kD = 2 * kRadius + 2;              // 8 integer taps a side
-constexpr int kTaps = kD * kD;                   // 64: four 16-row tiles
-constexpr int kOut = (kD - 1) * (kD - 1);        // 49 outputs per window
-constexpr int kRowBytes = 128;                   // a tap's 64-channel half
-constexpr int kHalfBytes = kTaps * kRowBytes;    // one box of a window: 8 KB
-constexpr int kWindowBytes = 2 * kHalfBytes;     // 16 KB
+constexpr int kRadius = 3;                 // the tracker's corr_radius
+constexpr int kD = 2 * kRadius + 2;        // 8 integer taps a side
+constexpr int kTaps = kD * kD;             // 64: four 16-row tiles
+constexpr int kOut = (kD - 1) * (kD - 1);  // 49 outputs per window
+// A row of the 128-byte swizzle: a tap's 64-channel half in bf16, a whole
+// tap in int8. A window's box of rows is 8 KB; bf16 windows take two.
+constexpr int kRowBytes = 128;
+constexpr int kBoxBytes = kTaps * kRowBytes;
 constexpr int kConsumerWarps = 6;
 constexpr int kSlotsPerWarp = 2;
 constexpr int kSlots = kConsumerWarps * kSlotsPerWarp;
-constexpr int kRingBytes = kSlots * kWindowBytes;  // 192 KB
 constexpr int kThreads = 32 * (kConsumerWarps + 1);
 constexpr int kSmemLimit = 232448;  // a block's most dynamic shared memory
 // beside the map or ring: the consumers' taps, the zero row, the barriers
@@ -107,19 +125,25 @@ constexpr int kExtraBytes = 3072;
 static_assert(1024 + kConsumerWarps * kTaps * 4 + 128 + (2 * kSlots + 1) * 8 <= kExtraBytes,
               "shared-memory reserve");
 
-// A level's map of one frame in shared memory: two halves of 64 channels,
-// each H*W rows of 128 bytes, the second starting 1024-aligned.
-__host__ __device__ constexpr int resident_half_bytes(int h, int w) {
+// Sections of 128-byte rows per tap: bf16 taps are two of 64 channels, int8
+// taps one of 128.
+__host__ __device__ constexpr int sections(bool int8) { return int8 ? 1 : 2; }
+
+// A level's map of one frame in shared memory, per section: H*W rows of 128
+// bytes, each section starting 1024-aligned.
+__host__ __device__ constexpr int resident_section_bytes(int h, int w) {
   return (h * w * kRowBytes + 1023) / 1024 * 1024;
 }
 
 // The launch-independent part: one tensor map per level (streamed: box
-// 64 x 8 x 8 x 1; resident: 64 x W x H x 1) and the level shapes. Encoded
-// once per pyramid (corr_sample_plan) and copied into every launch.
+// 128 bytes x 8 x 8 x 1; resident: 128 bytes x W x H x 1) and the level
+// shapes. Encoded once per pyramid (corr_sample_plan) and copied into every
+// launch.
 struct alignas(64) CorrPlan {
   CUtensorMap map[kMaxLevels];
   int h[kMaxLevels], w[kMaxLevels], resident[kMaxLevels];
   int L, S;
+  int int8;    // the maps' type: 0 bf16, 1 int8
   int region;  // bytes of shared memory for the resident map or the ring
 };
 
@@ -135,6 +159,7 @@ struct alignas(64) CorrArgs {
   Segment seg[kMaxLevels];  // resident levels first: their blocks are the longest
   const float* targets;     // (N, S, C)
   const float* coords;      // (S, N, 2)
+  const float* scales;      // int8 maps: (L,) dequantisation scales; else null
   float* out;               // (N, S, L * 49)
   int N, res_chunk, stream_chunk;
   float inv_sqrt_c;
@@ -244,21 +269,26 @@ __device__ __forceinline__ uint32_t split_term(float2 v, int g) {
 }
 
 // This lane's share of a target row, loaded one window ahead of its use:
-// lanes g = lane / 4 < 3 hold channels 16ks + 2tig..+1 and 16ks + 8 + 2tig..+1
-// (tig = lane % 4) of every k-step ks, the other lanes zeros.
+// lanes g = lane / 4 < kTerms hold, for every k-step ks, the channels of
+// logical k 2tig..+1 and 2tig+8..+9 (tig = lane % 4), the other lanes
+// zeros. bf16 maps: channels 16ks + 2tig..+1 and 16ks + 8 + 2tig..+1; int8
+// maps: the permutation of the header note.
 struct TargetPart {
   float2 v[8][2];
 };
 
+template <int kTerms, bool kInt8>
 __device__ __forceinline__ TargetPart load_target(const float* __restrict__ target, int lane) {
   const int g = lane >> 2, tig = lane & 3;
   TargetPart t;
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
+    const int c0 = kInt8 ? 32 * (ks >> 1) + 4 * tig + 2 * (ks & 1) : 16 * ks + 2 * tig;
+    const int c1 = kInt8 ? c0 + 16 : c0 + 8;
     t.v[ks][0] = t.v[ks][1] = make_float2(0.f, 0.f);
-    if (g < 3) {
-      t.v[ks][0] = *reinterpret_cast<const float2*>(target + 16 * ks + 2 * tig);
-      t.v[ks][1] = *reinterpret_cast<const float2*>(target + 16 * ks + 8 + 2 * tig);
+    if (g < kTerms) {
+      t.v[ks][0] = *reinterpret_cast<const float2*>(target + c0);
+      t.v[ks][1] = *reinterpret_cast<const float2*>(target + c1);
     }
   }
   return t;
@@ -266,11 +296,12 @@ __device__ __forceinline__ TargetPart load_target(const float* __restrict__ targ
 
 // The A fragments of k-step ks for the four row tiles: ldmatrix.x4, lane L
 // giving the address of row L % 8 of matrix L / 8 (rows 0-7 | 8-15 of the
-// tile, then k 0-7 | 8-15), which yields the fragment in order. Row r of
-// tile m is tap 16m + r; k-step ks reads channels 16ks..16ks+15: half
-// ks / 4, 16-byte chunks 2(ks % 4) and 2(ks % 4) + 1 of the row, swizzled.
-// base[m], sw[m] and hs[m] are this lane's row address in tile m, its
-// swizzle (row & 7) and the distance to the row's second half (0 for the
+// tile, then 16-byte chunk 2(ks % 4) | 2(ks % 4) + 1 of the row), which
+// yields the fragment in order. Row r of tile m is tap 16m + r. bf16 maps:
+// k-step ks reads channels 16ks..16ks+15, half ks / 4. int8 maps: called
+// with ks = p < 4, it reads the chunks of k-steps 2p and 2p + 1. base[m],
+// sw[m] and hs[m] are this lane's row address in tile m, its swizzle
+// (row & 7) and the distance to the row's second half (bf16; 0 for the
 // zero row).
 __device__ __forceinline__ void load_kstep(uint32_t (&a)[4][4], const uint32_t (&base)[4],
                                            const int (&sw)[4], const uint32_t (&hs)[4], int ks,
@@ -281,14 +312,29 @@ __device__ __forceinline__ void load_kstep(uint32_t (&a)[4][4], const uint32_t (
     ldmatrix_x4(a[m], base[m] + (ks >> 2) * hs[m] + ((chunk ^ sw[m]) << 4));
 }
 
+// Four int8 values (one 32-bit word, lowest byte first) as two bf16 pairs,
+// exactly: q + 128 placed in the low byte of the float 2^23 gives
+// 2^23 + q + 128, less 2^23 + 128 leaves q, whose top 16 bits are its bf16.
+__device__ __forceinline__ void s8x4_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t x = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440 + i)) - 8388736.0f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
 // The 64 taps of one window, each the dot product of its 128 channels with
-// the float32 target, into taps[a * 8 + b] (y offset a, x offset b).
-// mma.sync.m16n8k16 fragments (g = lane / 4, tig = lane % 4): B registers
-// {k 2tig..+1, col g}, {k 2tig+8..+9, col g}; D {row g, cols 2tig, 2tig+1},
-// {row g+8, same cols}; lanes g < 3 hold term g of the target. The four row
-// tiles accumulate side by side, k-step by k-step, with the next k-step's
-// fragments loaded before this one's products: four independent chains of
-// eight products instead of one of 32.
+// the target's kTerms bf16 terms, into taps[a * 8 + b] (y offset a, x
+// offset b). mma.sync.m16n8k16 fragments (g = lane / 4, tig = lane % 4): B
+// registers {k 2tig..+1, col g}, {k 2tig+8..+9, col g}; D {row g, cols 2tig,
+// 2tig+1}, {row g+8, same cols}; lanes g < kTerms hold term g of the
+// target. The four row tiles accumulate side by side, k-step by k-step, with
+// the next k-step's fragments loaded before this one's products: four
+// independent chains of eight products instead of one of 32. int8 maps load
+// two k-steps' fragments at a time and convert them (s8x4_bf16).
+template <bool kInt8>
 __device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[4],
                                             const int (&sw)[4], const uint32_t (&hs)[4],
                                             const TargetPart& t, int lane) {
@@ -302,15 +348,24 @@ __device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[
   float c[4][4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0.f;
+  constexpr int kLoads = kInt8 ? 4 : 8;
   uint32_t a[2][4][4];
   load_kstep(a[0], base, sw, hs, 0, lane);
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    if (ks + 1 < 8) load_kstep(a[(ks + 1) & 1], base, sw, hs, ks + 1, lane);
+  for (int ks = 0; ks < kLoads; ++ks) {
+    if (ks + 1 < kLoads) load_kstep(a[(ks + 1) & 1], base, sw, hs, ks + 1, lane);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const uint32_t(&f)[4] = a[ks & 1][m];
-      mma_bf16_16816(c[m], f[0], f[1], f[2], f[3], b[ks][0], b[ks][1]);
+      if constexpr (kInt8) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s8x4_bf16(f[r], lo[r], hi[r]);
+        mma_bf16_16816(c[m], lo[0], lo[1], lo[2], lo[3], b[2 * ks][0], b[2 * ks][1]);
+        mma_bf16_16816(c[m], hi[0], hi[1], hi[2], hi[3], b[2 * ks + 1][0], b[2 * ks + 1][1]);
+      } else {
+        mma_bf16_16816(c[m], f[0], f[1], f[2], f[3], b[ks][0], b[ks][1]);
+      }
     }
   }
 #pragma unroll
@@ -326,19 +381,17 @@ __device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[
   }
 }
 
-// The 2x2 blend of a D x D tap tile (shared memory) into its d x d
+// The 2x2 blend of a window's 8 x 8 taps (shared memory) into its 7 x 7
 // outputs, scaled, in the transposed flatten.
-__device__ __forceinline__ void blend_store(const float* taps, float dx, float dy, int radius,
-                                            float scale, float* o, int lane) {
-  const int D = 2 * radius + 2;
-  const int d = 2 * radius + 1;
+__device__ __forceinline__ void blend_store(const float* taps, float dx, float dy, float scale,
+                                            float* o, int lane) {
   const float w00 = (1.f - dy) * (1.f - dx), w01 = (1.f - dy) * dx;
   const float w10 = dy * (1.f - dx), w11 = dy * dx;
-  for (int k = lane; k < d * d; k += 32) {
-    const int i = k / d;  // x offset
-    const int j = k % d;  // y offset
-    const float v = w00 * taps[j * D + i] + w01 * taps[j * D + i + 1] +
-                    w10 * taps[(j + 1) * D + i] + w11 * taps[(j + 1) * D + i + 1];
+  for (int k = lane; k < kOut; k += 32) {
+    const int i = k / (kD - 1);  // x offset
+    const int j = k % (kD - 1);  // y offset
+    const float v = w00 * taps[j * kD + i] + w01 * taps[j * kD + i + 1] +
+                    w10 * taps[(j + 1) * kD + i] + w11 * taps[(j + 1) * kD + i + 1];
     o[k] = v * scale;
   }
 }
@@ -348,8 +401,13 @@ __device__ __forceinline__ void blend_store(const float* taps, float dx, float d
 // its consumers take the tracks of its chunk in turn; a streamed block's
 // producer walks its chunk of windows in order, window j into slot
 // (j % 6) * 2 + (j / 6) % 2, so each slot is always read by the same
-// consumer warp, in order.
-__global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_constant__ CorrArgs a) {
+// consumer warp, in order. kTerms: bf16 terms of the target (3, or 1 for
+// the mxu option); kInt8: int8 maps (two blocks fit on an SM).
+template <int kTerms, bool kInt8>
+__global__ void __launch_bounds__(kThreads, kInt8 ? 2 : 1)
+    corr_sample_kernel(const __grid_constant__ CorrArgs a) {
+  constexpr int kSections = sections(kInt8);
+  constexpr int kWindowBytes = kSections * kBoxBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const CorrPlan& p = a.plan;
@@ -366,6 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_c
   const Segment sg = a.seg[si];
   const int l = sg.level, blk = (int)blockIdx.x - sg.first_block;
   const int N = a.N, S = p.S;
+  const float scale = kInt8 ? a.scales[l] * a.inv_sqrt_c : a.inv_sqrt_c;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kSlots; ++i) {
@@ -382,12 +441,12 @@ __global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_c
     const int s = blk / sg.chunks, n0 = (blk % sg.chunks) * a.res_chunk;
     const int n1 = min(N, n0 + a.res_chunk);
     const int H = p.h[l], W = p.w[l];
-    const uint32_t half = resident_half_bytes(H, W);
+    const uint32_t section = resident_section_bytes(H, W);
     if (warp == kConsumerWarps) {
       if (lane == 0) {
-        mbar_arrive_expect_tx(map_full, 2 * H * W * kRowBytes);
-        tma_load_4d(smem, &p.map[l], map_full, 0, 0, 0, s);
-        tma_load_4d(smem + half, &p.map[l], map_full, 64, 0, 0, s);
+        mbar_arrive_expect_tx(map_full, kSections * H * W * kRowBytes);
+        for (int k = 0; k < kSections; ++k)
+          tma_load_4d(smem + k * section, &p.map[l], map_full, 64 * k, 0, 0, s);
       }
       return;
     }
@@ -397,13 +456,13 @@ __global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_c
     // is contracted (the last window's are loaded twice)
     const float* tgt = a.targets + (long long)s * kC;  // track n's row at + n * S * kC
     Win w = window_at(a.coords, N, s, n, l);
-    TargetPart t = load_target(tgt + (long long)n * S * kC, lane);
+    TargetPart t = load_target<kTerms, kInt8>(tgt + (long long)n * S * kC, lane);
     mbar_wait(map_full, 0);
     const uint32_t map = smem_u32(smem), zrow = smem_u32(zero);
     for (; n < n1; n += kConsumerWarps) {
       const int nn = min(n + kConsumerWarps, n1 - 1);
       const Win wn = window_at(a.coords, N, s, nn, l);
-      const TargetPart tn = load_target(tgt + (long long)nn * S * kC, lane);
+      const TargetPart tn = load_target<kTerms, kInt8>(tgt + (long long)nn * S * kC, lane);
       uint32_t base[4], hs[4];
       int sw[4];
 #pragma unroll
@@ -413,12 +472,12 @@ __global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_c
         const int row = in ? yy * W + xx : 0;
         base[m] = in ? map + row * kRowBytes : zrow;
         sw[m] = row & 7;
-        hs[m] = in ? half : 0u;
+        hs[m] = in ? section : 0u;
       }
-      window_taps(taps, base, sw, hs, t, lane);
+      window_taps<kInt8>(taps, base, sw, hs, t, lane);
       __syncwarp();
-      blend_store(taps, w.dx, w.dy, kRadius, a.inv_sqrt_c,
-                  a.out + (((long long)n * S + s) * p.L + l) * kOut, lane);
+      blend_store(taps, w.dx, w.dy, scale, a.out + (((long long)n * S + s) * p.L + l) * kOut,
+                  lane);
       __syncwarp();
       w = wn;
       t = tn;
@@ -450,8 +509,8 @@ __global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_c
         if (lane == 0) {
           uint8_t* dst = smem + slot * kWindowBytes;
           mbar_arrive_expect_tx(&full[slot], kWindowBytes);
-          tma_load_4d(dst, &p.map[l], &full[slot], 0, xk, yk, sk);
-          tma_load_4d(dst + kHalfBytes, &p.map[l], &full[slot], 64, xk, yk, sk);
+          for (int q = 0; q < kSections; ++q)
+            tma_load_4d(dst + q * kBoxBytes, &p.map[l], &full[slot], 64 * q, xk, yk, sk);
         }
       }
     }
@@ -463,7 +522,7 @@ __global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_c
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     sw[m] = lane & 7;
-    hs[m] = kHalfBytes;
+    hs[m] = kBoxBytes;
   }
   int j = warp;
   if (j >= cnt) return;
@@ -472,214 +531,30 @@ __global__ void __launch_bounds__(kThreads, 1) corr_sample_kernel(const __grid_c
   long long i = i0 + j;
   int s = (int)(i / N), n = (int)(i % N);
   Win w = window_at(a.coords, N, s, n, l);
-  TargetPart t = load_target(a.targets + ((long long)n * S + s) * kC, lane);
+  TargetPart t = load_target<kTerms, kInt8>(a.targets + ((long long)n * S + s) * kC, lane);
   for (int r = 0; j < cnt; j += kConsumerWarps, ++r) {
     i = i0 + min(j + kConsumerWarps, cnt - 1);
     const int sn = (int)(i / N), nn = (int)(i % N);
     const Win wn = window_at(a.coords, N, sn, nn, l);
-    const TargetPart tn = load_target(a.targets + ((long long)nn * S + sn) * kC, lane);
+    const TargetPart tn =
+        load_target<kTerms, kInt8>(a.targets + ((long long)nn * S + sn) * kC, lane);
     const int slot = warp * kSlotsPerWarp + r % kSlotsPerWarp;
     uint32_t base[4];
 #pragma unroll
     for (int m = 0; m < 4; ++m)
       base[m] = smem_u32(smem + slot * kWindowBytes) + (16 * m + rowsel) * kRowBytes;
     mbar_wait(&full[slot], (r / kSlotsPerWarp) & 1);
-    window_taps(taps, base, sw, hs, t, lane);
+    window_taps<kInt8>(taps, base, sw, hs, t, lane);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);  // the slot's taps are read
-    blend_store(taps, w.dx, w.dy, kRadius, a.inv_sqrt_c,
-                a.out + (((long long)n * S + s) * p.L + l) * kOut, lane);
+    blend_store(taps, w.dx, w.dy, scale, a.out + (((long long)n * S + s) * p.L + l) * kOut,
+                lane);
     __syncwarp();
     s = sn;
     n = nn;
     w = wn;
     t = tn;
   }
-}
-
-// ---------------------------------------------------------------- variants
-// One (track, frame, level) item of the two variant kernels: where its
-// window starts in the level's map and the bilinear weights.
-struct Levels {
-  long long off[kMaxLevels];  // element offset of level l in the flat buffer
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-};
-
-struct Window {
-  long long ns;  // n * S + s: the row of targets and of out / L
-  const void* level;  // the level's (H, W, C) map of frame s (bf16 or int8)
-  int H, W, x0, y0, l;
-  float dx, dy;
-};
-
-template <typename T>
-__device__ __forceinline__ Window locate(const T* pyr, long long item, const float* coords,
-                                         int N, int S, int L, int radius, const Levels& lv) {
-  Window w;
-  w.l = (int)(item % L);
-  w.ns = item / L;
-  const int s = (int)(w.ns % S);
-  const long long n = w.ns / S;
-  const float sc = ldexpf(1.0f, -w.l);
-  const float cx = coords[((long long)s * N + n) * 2 + 0] * sc;
-  const float cy = coords[((long long)s * N + n) * 2 + 1] * sc;
-  const float fx = floorf(cx), fy = floorf(cy);
-  w.dx = cx - fx;  // weights from the unclamped coords
-  w.dy = cy - fy;
-  w.x0 = (int)fminf(fmaxf(fx, -1e6f), 1e6f) - radius;
-  w.y0 = (int)fminf(fmaxf(fy, -1e6f), 1e6f) - radius;
-  w.H = lv.h[w.l];
-  w.W = lv.w[w.l];
-  w.level = pyr + lv.off[w.l] + (long long)s * w.H * w.W * kC;
-  return w;
-}
-
-// int8 maps, float32 contraction: lane k holds channels 4k..4k+3.
-__global__ void corr_sample_int8_kernel(const int8_t* __restrict__ pyr,
-                                        const float* __restrict__ scales,
-                                        const float* __restrict__ targets,
-                                        const float* __restrict__ coords,
-                                        float* __restrict__ out, int N, int S, int L,
-                                        int radius, Levels lv, float inv_sqrt_c) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long item = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (item >= (long long)N * S * L) return;  // warp-uniform exit
-  const int D = 2 * radius + 2;
-  float* taps = smem + warp * D * D;
-  const Window w = locate(pyr, item, coords, N, S, L, radius, lv);
-  const float4 t = *reinterpret_cast<const float4*>(targets + w.ns * kC + lane * 4);
-  const int8_t* fm = static_cast<const int8_t*>(w.level);
-
-  for (int a = 0; a < D; ++a) {
-    const int yy = w.y0 + a;
-    for (int b = 0; b < D; ++b) {
-      const int xx = w.x0 + b;
-      if (yy < 0 || yy >= w.H || xx < 0 || xx >= w.W) {  // warp-uniform
-        if (lane == 0) taps[a * D + b] = 0.f;
-        continue;
-      }
-      const char4 q = *reinterpret_cast<const char4*>(fm + ((long long)yy * w.W + xx) * kC +
-                                                      lane * 4);
-      float acc = (float)q.x * t.x;
-      acc = fmaf((float)q.y, t.y, acc);
-      acc = fmaf((float)q.z, t.z, acc);
-      acc = fmaf((float)q.w, t.w, acc);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) taps[a * D + b] = acc;
-    }
-  }
-  __syncwarp();
-  blend_store(taps, w.dx, w.dy, radius, scales[w.l] * inv_sqrt_c,
-              out + item * ((D - 1) * (D - 1)), lane);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Tap row r (a * D + b) of the window as this lane's A words: channels
-// p * 32 + tig * 8 .. + 8 for p = 0..3, one 16-byte load each; zero for a
-// tap outside the map or a row past the D * D taps.
-__device__ __forceinline__ void load_tap_row(uint4 (&row)[4], const __nv_bfloat16* fm,
-                                             const Window& w, int D, int r, int tig) {
-  const int yy = w.y0 + r / D, xx = w.x0 + r % D;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) row[p] = make_uint4(0, 0, 0, 0);
-  if (r < D * D && yy >= 0 && yy < w.H && xx >= 0 && xx < w.W) {
-    const __nv_bfloat16* src = fm + ((long long)yy * w.W + xx) * kC + tig * 8;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) row[p] = *reinterpret_cast<const uint4*>(src + p * 32);
-  }
-}
-
-// bf16 maps, tensor-core contraction of the target rounded to bf16.
-// mma.sync.m16n8k16 fragments (g = lane / 4, tig = lane % 4): A registers
-// {row g, k 2tig..+1}, {row g+8, same k}, {row g, k 2tig+8..+9}, {row g+8,
-// same}; B registers {k 2tig..+1, col g}, {k 2tig+8..+9, col g}; D {row g,
-// cols 2tig, 2tig+1}, {row g+8, same cols}. K-step 2p+j maps logical k
-// 2tig+e to channel p*32 + tig*8 + 4j + e and 2tig+8+e to + 4j + 2 + e, in
-// A and B alike. Only lanes 0-3 (g = 0) hold a non-zero B column; lanes
-// with tig = 0 receive column 0 of D, the windows' dot products.
-__global__ void corr_sample_mxu_kernel(const __nv_bfloat16* __restrict__ pyr,
-                                       const float* __restrict__ targets,
-                                       const float* __restrict__ coords,
-                                       float* __restrict__ out, int N, int S, int L,
-                                       int radius, Levels lv, float inv_sqrt_c) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long item = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (item >= (long long)N * S * L) return;  // warp-uniform exit: mma.sync needs the full warp
-  const int D = 2 * radius + 2;
-  const int g = lane >> 2, tig = lane & 3;
-  float* taps = smem + warp * D * D;
-  const Window w = locate(pyr, item, coords, N, S, L, radius, lv);
-  const __nv_bfloat16* fm = static_cast<const __nv_bfloat16*>(w.level);
-
-  uint32_t b[8][2];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (g == 0) {
-      const float* t = targets + w.ns * kC + p * 32 + tig * 8;
-      lo = *reinterpret_cast<const float4*>(t);
-      hi = *reinterpret_cast<const float4*>(t + 4);
-    }
-    b[2 * p][0] = pack_bf16x2(lo.x, lo.y);
-    b[2 * p][1] = pack_bf16x2(lo.z, lo.w);
-    b[2 * p + 1][0] = pack_bf16x2(hi.x, hi.y);
-    b[2 * p + 1][1] = pack_bf16x2(hi.z, hi.w);
-  }
-
-  for (int m = 0; m * 16 < D * D; ++m) {  // 16 tap rows per tile
-    const int r0 = m * 16 + g, r1 = r0 + 8;
-    uint4 a0[4], a1[4];
-    load_tap_row(a0, fm, w, D, r0, tig);
-    load_tap_row(a1, fm, w, D, r1, tig);
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      mma_bf16_16816(c, a0[p].x, a1[p].x, a0[p].y, a1[p].y, b[2 * p][0], b[2 * p][1]);
-      mma_bf16_16816(c, a0[p].z, a1[p].z, a0[p].w, a1[p].w, b[2 * p + 1][0], b[2 * p + 1][1]);
-    }
-    if (tig == 0) {
-      if (r0 < D * D) taps[r0] = c[0];
-      if (r1 < D * D) taps[r1] = c[2];
-    }
-  }
-  __syncwarp();
-  blend_store(taps, w.dx, w.dy, radius, inv_sqrt_c, out + item * ((D - 1) * (D - 1)), lane);
-}
-
-// The host arrays of one variant launch as kernel arguments; false when
-// the arguments are outside what the kernels take.
-bool read_levels(Levels* lv, int C, int L, int radius, const long long* level_off,
-                 const int* level_h, const int* level_w) {
-  if (L < 1 || L > kMaxLevels || C != kC || radius < 0) return false;
-  for (int l = 0; l < L; ++l) {
-    lv->off[l] = level_off[l];
-    lv->h[l] = level_h[l];
-    lv->w[l] = level_w[l];
-  }
-  return true;
-}
-
-struct LaunchShape {
-  dim3 grid, block;
-  size_t shmem;
-};
-
-// The variants: one warp per item, kWarpsPerBlock items per block, a D x D
-// float tap tile per warp in shared memory.
-LaunchShape launch_shape(long long items, int radius) {
-  const int D = 2 * radius + 2;
-  return {dim3((unsigned)((items + kWarpsPerBlock - 1) / kWarpsPerBlock)),
-          dim3(32 * kWarpsPerBlock), sizeof(float) * kWarpsPerBlock * D * D};
 }
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -707,76 +582,30 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-}  // namespace
-
-// Size in bytes of the host buffer corr_sample_plan fills.
-extern "C" int corr_plan_bytes() { return (int)sizeof(CorrPlan); }
-
-// Encode the tensor maps of a packed bf16 pyramid into `plan` (a host
-// buffer of corr_plan_bytes()), once per pyramid: pyr holds the levels
-// concatenated, level l (S, H_l, W_l, C) channels-last at element offset
-// level_off[l]; resident[l] != 0 keeps level l's map of a frame in shared
-// memory (the wrapper decides; its map must fit beside kExtraBytes and
-// measure at most 256 x 256). Returns a cudaError_t.
-extern "C" int corr_sample_plan(void* plan, const void* pyr, int S, int C, int L,
-                                const long long* level_off, const int* level_h,
-                                const int* level_w, const int* resident) {
-  if (L < 1 || L > kMaxLevels || C != kC || S < 1) return (int)cudaErrorInvalidValue;
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorInvalidValue;
-  CorrPlan p;
-  memset(&p, 0, sizeof(p));
-  p.L = L;
-  p.S = S;
-  int region = 0;
-  for (int l = 0; l < L; ++l) {
-    const int h = level_h[l], w = level_w[l];
-    const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(pyr) + level_off[l];
-    if (h < 1 || w < 1 || reinterpret_cast<uintptr_t>(base) % 16)
-      return (int)cudaErrorInvalidValue;
-    p.h[l] = h;
-    p.w[l] = w;
-    p.resident[l] = resident[l] != 0;
-    const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)S};
-    const cuuint64_t strides[3] = {(cuuint64_t)kC * 2, (cuuint64_t)kC * 2 * w,
-                                   (cuuint64_t)kC * 2 * w * h};
-    cuuint32_t box[4] = {64, (cuuint32_t)kD, (cuuint32_t)kD, 1};
-    if (p.resident[l]) {
-      if (h > 256 || w > 256) return (int)cudaErrorInvalidValue;
-      box[1] = (cuuint32_t)w;
-      box[2] = (cuuint32_t)h;
-      region = region > 2 * resident_half_bytes(h, w) ? region : 2 * resident_half_bytes(h, w);
-    } else {
-      region = region > kRingBytes ? region : kRingBytes;
-    }
-    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-    if (encode(&p.map[l], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<__nv_bfloat16*>(base),
-               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-  }
-  if (region + kExtraBytes > kSmemLimit) return (int)cudaErrorInvalidValue;
-  p.region = region;
-  memcpy(plan, &p, sizeof(p));
-  return (int)cudaFuncSetAttribute(corr_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   kSmemLimit);
+// Up to the largest dynamic shared memory for an instantiation, and for
+// int8 maps the carveout that lets two blocks share an SM.
+template <int kTerms, bool kInt8>
+cudaError_t allow_shared_memory() {
+  cudaError_t e = cudaFuncSetAttribute(corr_sample_kernel<kTerms, kInt8>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (kInt8 && e == cudaSuccess)
+    e = cudaFuncSetAttribute(corr_sample_kernel<kTerms, kInt8>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
 }
 
-// One launch for every level of a planned pyramid: targets f32 (N, S, C);
-// coords f32 (S, N, 2) at level-0 resolution; out f32 (N, S, L*49).
-// radius must be 3. res_chunk: tracks per block of a resident level;
-// stream_chunk: windows per block of a streamed level. Returns
-// cudaGetLastError() after the launch.
-extern "C" int corr_sample_pyramid(const void* plan, const void* targets, const void* coords,
-                                   void* out, int N, int radius, int res_chunk,
-                                   int stream_chunk, void* stream) {
+// One launch for every level of a planned pyramid (see the entry points).
+template <int kTerms, bool kInt8>
+int launch(const void* plan, const void* targets, const void* coords, const void* scales,
+           void* out, int N, int radius, int res_chunk, int stream_chunk, void* stream) {
   if (radius != kRadius || N < 0 || res_chunk < 1 || stream_chunk < 1)
     return (int)cudaErrorInvalidValue;
-  if (N == 0) return (int)cudaSuccess;
   CorrArgs a;
   memcpy(&a.plan, plan, sizeof(CorrPlan));
   const CorrPlan& p = a.plan;
+  if (p.int8 != (int)kInt8 || (kInt8 && scales == nullptr)) return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
   long long blocks = 0;
   int ns = 0;
   for (int pass = 1; pass >= 0; --pass) {  // resident levels first
@@ -794,54 +623,126 @@ extern "C" int corr_sample_pyramid(const void* plan, const void* targets, const 
   if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   a.targets = static_cast<const float*>(targets);
   a.coords = static_cast<const float*>(coords);
+  a.scales = static_cast<const float*>(scales);
   a.out = static_cast<float*>(out);
   a.N = N;
   a.res_chunk = res_chunk;
   a.stream_chunk = stream_chunk;
   a.inv_sqrt_c = 1.0f / sqrtf((float)kC);
-  corr_sample_kernel<<<(unsigned)blocks, kThreads, p.region + kExtraBytes,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  corr_sample_kernel<kTerms, kInt8><<<(unsigned)blocks, kThreads, p.region + kExtraBytes,
+                                      static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The two variants take the level table of every launch: pyr (bf16 or
-// int8), levels concatenated as above; level_* are host arrays; any radius.
-// int8 maps: scales is a device array (L,) f32, level l's dequantisation
-// scale, written on the same stream before.
-extern "C" int corr_sample_pyramid_int8(const void* pyr, const void* targets,
+}  // namespace
+
+// Size in bytes of the host buffer corr_sample_plan fills.
+extern "C" int corr_plan_bytes() { return (int)sizeof(CorrPlan); }
+
+// Encode the tensor maps of a packed pyramid into `plan` (a host buffer of
+// corr_plan_bytes()), once per pyramid: pyr holds the levels concatenated,
+// bf16 (int8 = 0) or int8 (int8 = 1), level l (S, H_l, W_l, C)
+// channels-last at element offset level_off[l]; resident[l] != 0 keeps
+// level l's map of a frame in shared memory (the wrapper decides; its map
+// must fit beside kExtraBytes and measure at most 256 x 256). Returns a
+// cudaError_t.
+extern "C" int corr_sample_plan(void* plan, const void* pyr, int S, int C, int L,
+                                const long long* level_off, const int* level_h,
+                                const int* level_w, const int* resident, int int8) {
+  if (L < 1 || L > kMaxLevels || C != kC || S < 1 || (int8 != 0 && int8 != 1))
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  const int elem = int8 ? 1 : 2, nsec = sections(int8 != 0);
+  CorrPlan p;
+  memset(&p, 0, sizeof(p));
+  p.L = L;
+  p.S = S;
+  p.int8 = int8;
+  int region = 0;
+  for (int l = 0; l < L; ++l) {
+    const int h = level_h[l], w = level_w[l];
+    const uint8_t* base = static_cast<const uint8_t*>(pyr) + level_off[l] * elem;
+    if (h < 1 || w < 1 || reinterpret_cast<uintptr_t>(base) % 16)
+      return (int)cudaErrorInvalidValue;
+    p.h[l] = h;
+    p.w[l] = w;
+    p.resident[l] = resident[l] != 0;
+    const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)S};
+    const cuuint64_t strides[3] = {(cuuint64_t)kC * elem, (cuuint64_t)kC * elem * w,
+                                   (cuuint64_t)kC * elem * w * h};
+    // a box row is 128 bytes: 64 bf16 channels or 128 int8 ones
+    cuuint32_t box[4] = {(cuuint32_t)(kRowBytes / elem), (cuuint32_t)kD, (cuuint32_t)kD, 1};
+    int need = kSlots * nsec * kBoxBytes;  // the ring
+    if (p.resident[l]) {
+      if (h > 256 || w > 256) return (int)cudaErrorInvalidValue;
+      box[1] = (cuuint32_t)w;
+      box[2] = (cuuint32_t)h;
+      need = nsec * resident_section_bytes(h, w);
+    }
+    region = region > need ? region : need;
+    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+    if (encode(&p.map[l], int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               4, const_cast<uint8_t*>(base), dims, strides, box, elem_strides,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  if (region + kExtraBytes > kSmemLimit) return (int)cudaErrorInvalidValue;
+  p.region = region;
+  memcpy(plan, &p, sizeof(p));
+  cudaError_t e = int8 ? allow_shared_memory<3, true>() : allow_shared_memory<3, false>();
+  if (e == cudaSuccess && !int8) e = allow_shared_memory<1, false>();
+  return (int)e;
+}
+
+// Blocks of the planned pyramid's kernel that fit on one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
+// contract: 0 the float32 target (three terms), 1 the mxu option.
+extern "C" int corr_sample_blocks_per_sm(const void* plan, int contract) {
+  CorrPlan p;
+  memcpy(&p, plan, sizeof(CorrPlan));
+  const size_t smem = (size_t)p.region + kExtraBytes;
+  int n = -1;
+  const cudaError_t e =
+      p.int8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, corr_sample_kernel<3, true>,
+                                                             kThreads, smem)
+      : contract ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &n, corr_sample_kernel<1, false>, kThreads, smem)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &n, corr_sample_kernel<3, false>, kThreads, smem);
+  return e == cudaSuccess ? n : -1;
+}
+
+// One launch for every level of a pyramid planned from bf16 maps, with the
+// float32 target (the tracker's): targets f32 (N, S, C); coords f32
+// (S, N, 2) at level-0 resolution; out f32 (N, S, L*49). radius must be 3.
+// res_chunk: tracks per block of a resident level; stream_chunk: windows
+// per block of a streamed level. Returns cudaGetLastError() after the
+// launch.
+extern "C" int corr_sample_pyramid(const void* plan, const void* targets, const void* coords,
+                                   void* out, int N, int radius, int res_chunk,
+                                   int stream_chunk, void* stream) {
+  return launch<3, false>(plan, targets, coords, nullptr, out, N, radius, res_chunk,
+                          stream_chunk, stream);
+}
+
+// The same on bf16 maps with the target rounded to bf16 (contract="mxu").
+extern "C" int corr_sample_pyramid_mxu(const void* plan, const void* targets,
+                                       const void* coords, void* out, int N, int radius,
+                                       int res_chunk, int stream_chunk, void* stream) {
+  return launch<1, false>(plan, targets, coords, nullptr, out, N, radius, res_chunk,
+                          stream_chunk, stream);
+}
+
+// The same on a pyramid planned from int8 maps, with the float32 target:
+// scales is a device array (L,) f32, level l's dequantisation scale,
+// written on the same stream before.
+extern "C" int corr_sample_pyramid_int8(const void* plan, const void* targets,
                                         const void* coords, void* out, const void* scales,
-                                        int N, int S, int C, int L, int radius,
-                                        const long long* level_off, const int* level_h,
-                                        const int* level_w, void* stream) {
-  Levels lv;
-  if (!read_levels(&lv, C, L, radius, level_off, level_h, level_w))
-    return (int)cudaErrorInvalidValue;
-  const long long items = (long long)N * S * L;
-  if (items == 0) return (int)cudaSuccess;
-  const LaunchShape ls = launch_shape(items, radius);
-  corr_sample_int8_kernel<<<ls.grid, ls.block, ls.shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(pyr), static_cast<const float*>(scales),
-      static_cast<const float*>(targets), static_cast<const float*>(coords),
-      static_cast<float*>(out), N, S, L, radius, lv, 1.0f / sqrtf((float)kC));
-  return (int)cudaGetLastError();
-}
-
-// bf16 maps with the channel contraction on the tensor cores (the target
-// rounded to bf16).
-extern "C" int corr_sample_pyramid_mxu(const void* pyr, const void* targets,
-                                       const void* coords, void* out, int N, int S, int C,
-                                       int L, int radius, const long long* level_off,
-                                       const int* level_h, const int* level_w,
-                                       void* stream) {
-  Levels lv;
-  if (!read_levels(&lv, C, L, radius, level_off, level_h, level_w))
-    return (int)cudaErrorInvalidValue;
-  const long long items = (long long)N * S * L;
-  if (items == 0) return (int)cudaSuccess;
-  const LaunchShape ls = launch_shape(items, radius);
-  corr_sample_mxu_kernel<<<ls.grid, ls.block, ls.shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(pyr), static_cast<const float*>(targets),
-      static_cast<const float*>(coords), static_cast<float*>(out), N, S, L, radius, lv,
-      1.0f / sqrtf((float)kC));
-  return (int)cudaGetLastError();
+                                        int N, int radius, int res_chunk, int stream_chunk,
+                                        void* stream) {
+  return launch<3, true>(plan, targets, coords, scales, out, N, radius, res_chunk,
+                         stream_chunk, stream);
 }

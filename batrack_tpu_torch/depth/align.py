@@ -5,10 +5,8 @@ UniDepthV2's metric depth, a global (scale, shift) at the median
 scale*shift product, 98th-percentile normalisation and a shared pinhole K
 from the median metric FOV.
 
-Two differences of means, not of results: the disparity resize is the
-numpy replica of cv2.INTER_NEAREST_EXACT (depth/cvresize.py), and the image
-size comes from the first frame's header (data/image.py::image_size),
-not from decoding it.
+One difference of means, not of results: the image size comes from the
+first frame's header (data/image.py::image_size), not from decoding it.
 """
 
 from __future__ import annotations
@@ -20,7 +18,19 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from batrack_tpu_torch.data.image import image_size
-from batrack_tpu_torch.depth.cvresize import resize_nearest_exact as resize_nearest
+
+
+def resize_nearest(img: np.ndarray, shape_hw: Tuple[int, int]) -> np.ndarray:
+    """cv2's INTER_NEAREST_EXACT resize to (h, w), or plain index picking
+    where cv2 is missing (batrack_tpu/depth/align.py's fallback)."""
+    try:
+        import cv2
+
+        return cv2.resize(img, (shape_hw[1], shape_hw[0]), interpolation=cv2.INTER_NEAREST_EXACT)
+    except ImportError:
+        ys = (np.arange(shape_hw[0]) * img.shape[0] / shape_hw[0]).astype(int)
+        xs = (np.arange(shape_hw[1]) * img.shape[1] / shape_hw[1]).astype(int)
+        return img[ys][:, xs]
 
 
 def intrinsics_to_fov(K: np.ndarray, depth: np.ndarray) -> float:

@@ -28,7 +28,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from batrack_tpu_torch.depth.cvresize import resize_cubic_u8
 from batrack_tpu_torch.ops.sampling import interpolate_bilinear
 from batrack_tpu_torch.utils.config import full_fp32
 
@@ -275,9 +274,13 @@ def preprocess_shape(hw: Tuple[int, int], input_size: int = 518) -> Tuple[int, i
 
 def preprocess(image: np.ndarray, input_size: int = 518) -> np.ndarray:
     """uint8 RGB (H, W, 3) -> normalised (1, H', W', 3): the resize of
-    preprocess_shape by OpenCV's uint8 bicubic (depth/cvresize.py), then
-    ImageNet normalisation."""
-    img = resize_cubic_u8(image, preprocess_shape(image.shape[:2], input_size))
+    preprocess_shape by cv2's uint8 bicubic (INTER_CUBIC, under cv2's
+    process-wide IPP setting, as the JAX package's), then ImageNet
+    normalisation."""
+    import cv2
+
+    nh, nw = preprocess_shape(image.shape[:2], input_size)
+    img = cv2.resize(image, (nw, nh), interpolation=cv2.INTER_CUBIC)
     img = (img.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
     return img[None]
 

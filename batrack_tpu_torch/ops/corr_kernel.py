@@ -20,14 +20,18 @@ others by TMA; the choice is made here from the shapes, and the tensor maps
 of a packed pyramid are encoded once (`_plan`, keyed by the buffer's
 address and shapes, which is all a map encodes) and reused by its calls.
 
-The TPU kernel's two options have their own kernels in the same source:
+The TPU kernel's two options are two more instantiations of the same
+kernel, on the same pipeline and plan, each with its own entry point:
   * fmap_dtype="int8" (pack_pyramid): each level quantised to symmetric
     int8 with the scale amax/127, computed in the pyramid's own dtype as
-    pallas_corr.py::_pad_fmap does; the scale is folded into 1/sqrt(C);
-  * contract="mxu" (corr_sample): the target rounded to bf16 and the
-    channel contraction on the tensor cores (mma.sync), f32 accumulation.
-Each kernel counts its own launches: `corr_sample.launches` (bf16 maps,
+    pallas_corr.py::_pad_fmap does; one byte per channel through the same
+    TMA boxes, the values converted to bf16 exactly for the tensor cores,
+    and the scale folded into 1/sqrt(C);
+  * contract="mxu" (corr_sample): the target rounded to bf16, one term on
+    the tensor cores instead of three, f32 accumulation.
+Each route counts its own launches: `corr_sample.launches` (bf16 maps,
 float32 contraction, the tracker's), `.mxu_launches`, `.int8_launches`.
+Every route takes radius 3 only and raises on another before a launch.
 No config of either package selects the options; scripts/torch_corr_ab.py
 does, as scripts/corr_ab.py does for the TPU kernel.
 """
@@ -46,7 +50,7 @@ from batrack_tpu_torch.ops.corr import corr_sample_level
 FMAP_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 CONTRACTS = ("vpu", "mxu")
 
-# The main kernel's layout (csrc/corr_sample.cu): the window radius it takes
+# The kernel's layout (csrc/corr_sample.cu): the window radius it takes
 # (the tracker's corr_radius), a block's shared memory on the H100, what the
 # kernel keeps beside a resident map (kExtraBytes), and the work per block.
 KERNEL_RADIUS = 3
@@ -55,21 +59,28 @@ SMEM_RESERVE = 3072
 RES_CHUNK = 256     # tracks per block of a resident level (one frame's map)
 STREAM_CHUNK = 128  # windows per block of a streamed level
 _PLAN_CACHE = 16    # packed pyramids whose tensor maps are kept
+# the launch of each route: entry point, launch counter, what an error names
+_ROUTES = {("bf16", "vpu"): ("corr_sample_pyramid", "launches", "corr_sample"),
+           ("bf16", "mxu"): ("corr_sample_pyramid_mxu", "mxu_launches", "corr_sample (mxu)"),
+           ("int8", "vpu"): ("corr_sample_pyramid_int8", "int8_launches",
+                             "corr_sample (int8 maps)")}
 
 
-def resident_map_bytes(h: int, w: int, C: int = 128) -> int:
-    """Shared memory of one frame's (h, w, C) bf16 map held by a block: two
-    halves of C/2 channels, each h*w rows of C bytes, rounded up to 1024
-    bytes (the 128-byte swizzle's period)."""
-    half = h * w * C
-    return 2 * (-(-half // 1024) * 1024)
+def resident_map_bytes(h: int, w: int, C: int = 128, elem_bytes: int = 2) -> int:
+    """Shared memory of one frame's (h, w, C) map held by a block: its
+    taps' C * elem_bytes bytes cut into 128-byte rows (two sections of C/2
+    bf16 channels, or one of C int8 ones), each section h*w rows rounded up
+    to 1024 bytes (the 128-byte swizzle's period)."""
+    section = h * w * 128
+    return C * elem_bytes // 128 * (-(-section // 1024) * 1024)
 
 
-def resident_levels(shapes, C: int = 128) -> Tuple[bool, ...]:
+def resident_levels(shapes, C: int = 128, elem_bytes: int = 2) -> Tuple[bool, ...]:
     """Per level (h, w): whether the kernel keeps one frame's map in shared
     memory. It must fit beside the kernel's reserve, and measure at most
-    256 x 256 (one TMA box per half). The other levels are streamed."""
-    return tuple(h <= 256 and w <= 256 and resident_map_bytes(h, w, C) + SMEM_RESERVE <= SMEM_LIMIT
+    256 x 256 (one TMA box per section). The other levels are streamed."""
+    return tuple(h <= 256 and w <= 256
+                 and resident_map_bytes(h, w, C, elem_bytes) + SMEM_RESERVE <= SMEM_LIMIT
                  for h, w in shapes)
 
 
@@ -162,7 +173,7 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
             or pyr.flat.dtype not in (torch.bfloat16, torch.int8)):
         raise TypeError("corr_sample: needs f32 targets/coords and a bf16 or int8 pyramid")
     if (C != pyr.C or S != pyr.S or coords.shape != (S, N, 2)
-            or C != 128 or L > 8 or radius < 0):
+            or C != 128 or L > 8):
         raise ValueError(
             f"corr_sample: shapes targets {tuple(targets.shape)}, coords "
             f"{tuple(coords.shape)}, pyramid S={pyr.S} C={pyr.C} L={L} r={radius} "
@@ -171,6 +182,9 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
     if int8 and (pyr.scales is None or pyr.scales.shape != (L,)
                  or pyr.scales.dtype != torch.float32):
         raise ValueError("corr_sample: int8 maps need (L,) float32 scales")
+    if radius != KERNEL_RADIUS:
+        raise ValueError(f"corr_sample: radius {radius} (the kernel takes "
+                         f"{KERNEL_RADIUS}, the tracker's corr_radius)")
     targets = targets.contiguous()
     coords = coords.contiguous()
     devices = {targets.device, coords.device, pyr.flat.device}
@@ -178,40 +192,31 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
         devices.add(pyr.scales.device)
     if len(devices) != 1:
         raise ValueError("corr_sample: inputs on different devices")
-    d = 2 * radius + 1
-    out = torch.empty((N, S, L * d * d), dtype=torch.float32, device=targets.device)
+    out = torch.empty((N, S, L * (2 * radius + 1) ** 2), dtype=torch.float32,
+                      device=targets.device)
     lib = _library()
-    main = not int8 and contract == "vpu"
-    if main:
-        if radius != KERNEL_RADIUS:
-            raise ValueError(f"corr_sample: radius {radius} (the kernel takes "
-                             f"{KERNEL_RADIUS}, the tracker's corr_radius)")
-        plan = _plan(lib, pyr)
-    else:
-        args = [pyr.flat.data_ptr(), targets.data_ptr(), coords.data_ptr(), out.data_ptr()]
-        if int8:
-            args.append(pyr.scales.data_ptr())  # read by the kernel on the same stream
-        tables = _level_tables(pyr)
+    entry, counter, what = _ROUTES["int8" if int8 else "bf16", contract]
+    args = [_plan(lib, pyr), targets.data_ptr(), coords.data_ptr(), out.data_ptr()]
+    if int8:
+        args.append(pyr.scales.data_ptr())  # read by the kernel on the same stream
     with torch.cuda.device(targets.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if main:
-            status = lib.corr_sample_pyramid(plan, targets.data_ptr(), coords.data_ptr(),
-                                             out.data_ptr(), N, radius, RES_CHUNK, STREAM_CHUNK,
-                                             stream)
-        elif int8:
-            status = lib.corr_sample_pyramid_int8(*args, N, S, C, L, radius, *tables, stream)
-        else:
-            status = lib.corr_sample_pyramid_mxu(*args, N, S, C, L, radius, *tables, stream)
-    if main:
-        cuda_build.check(status, "corr_sample")
-        corr_sample.launches += 1
-    elif int8:
-        cuda_build.check(status, "corr_sample (int8 maps)")
-        corr_sample.int8_launches += 1
-    else:
-        cuda_build.check(status, "corr_sample (mxu)")
-        corr_sample.mxu_launches += 1
+        status = getattr(lib, entry)(*args, N, radius, RES_CHUNK, STREAM_CHUNK, stream)
+    cuda_build.check(status, what)
+    setattr(corr_sample, counter, getattr(corr_sample, counter) + 1)
     return out
+
+
+def blocks_per_sm(pyr: CorrPyramid, contract: str = "vpu") -> int:
+    """Blocks of the kernel that one SM holds at once for this packed (CUDA)
+    pyramid's launch: its shared memory and registers allow."""
+    _check_options(pyr, contract)
+    lib = _library()
+    with torch.cuda.device(pyr.flat.device):
+        n = lib.corr_sample_blocks_per_sm(_plan(lib, pyr), int(contract == "mxu"))
+    if n < 0:
+        raise RuntimeError("corr_sample: occupancy query failed")
+    return n
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -228,13 +233,14 @@ def _library() -> ctypes.CDLL:
         lib.corr_plan_bytes.restype = i32
         lib.corr_plan_bytes.argtypes = []
         lib.corr_sample_plan.restype = i32
-        lib.corr_sample_plan.argtypes = [ptr, ptr, i32, i32, i32, *tables, ctypes.POINTER(i32)]
-        lib.corr_sample_pyramid.restype = i32
-        lib.corr_sample_pyramid.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-        lib.corr_sample_pyramid_mxu.restype = i32
-        lib.corr_sample_pyramid_mxu.argtypes = [ptr] * 4 + [i32] * 5 + tables + [ptr]
-        lib.corr_sample_pyramid_int8.restype = i32
-        lib.corr_sample_pyramid_int8.argtypes = [ptr] * 5 + [i32] * 5 + tables + [ptr]
+        lib.corr_sample_plan.argtypes = [ptr, ptr, i32, i32, i32, *tables, ctypes.POINTER(i32),
+                                         i32]
+        lib.corr_sample_blocks_per_sm.restype = i32
+        lib.corr_sample_blocks_per_sm.argtypes = [ptr, i32]
+        for entry, _, _ in _ROUTES.values():
+            fn = getattr(lib, entry)
+            fn.restype = i32
+            fn.argtypes = [ptr] * (5 if entry.endswith("int8") else 4) + [i32] * 4 + [ptr]
         _lib = lib
     return _lib
 
@@ -247,12 +253,13 @@ def _level_tables(pyr: CorrPyramid):
 
 
 def _plan(lib: ctypes.CDLL, pyr: CorrPyramid) -> ctypes.Array:
-    """The main kernel's tensor maps for a packed bf16 pyramid, encoded on
-    its first call and reused by the next ones. A map encodes only the
-    buffer's address, shapes and the residency chosen from them, so the key
-    is exactly that: a new pyramid packed at the same address with the same
-    shapes gets the same maps."""
-    key = (pyr.flat.device.index, pyr.flat.data_ptr(), pyr.S, pyr.C, pyr.shapes)
+    """The kernel's tensor maps for a packed pyramid, encoded on its first
+    call and reused by the next ones. A map encodes only the buffer's
+    address, element type, shapes and the residency chosen from them, so
+    the key is exactly that: a new pyramid packed at the same address with
+    the same type and shapes gets the same maps, and an int8 and a bf16
+    pyramid never share them."""
+    key = (pyr.flat.device.index, pyr.flat.data_ptr(), pyr.flat.dtype, pyr.S, pyr.C, pyr.shapes)
     plan = _plans.get(key)
     if plan is not None:
         _plans.move_to_end(key)
@@ -261,10 +268,11 @@ def _plan(lib: ctypes.CDLL, pyr: CorrPyramid) -> ctypes.Array:
     if any(h < 1 or w < 1 for h, w in pyr.shapes):
         raise ValueError(f"corr_sample: empty pyramid level in {pyr.shapes}")
     plan = ctypes.create_string_buffer(lib.corr_plan_bytes())
-    resident = (ctypes.c_int * L)(*resident_levels(pyr.shapes, pyr.C))
+    elem = pyr.flat.element_size()
+    resident = (ctypes.c_int * L)(*resident_levels(pyr.shapes, pyr.C, elem))
     with torch.cuda.device(pyr.flat.device):
         status = lib.corr_sample_plan(plan, pyr.flat.data_ptr(), pyr.S, pyr.C, L,
-                                      *_level_tables(pyr), resident)
+                                      *_level_tables(pyr), resident, int(elem == 1))
     cuda_build.check(status, "corr_sample (tensor maps)")
     _plans[key] = plan
     if len(_plans) > _PLAN_CACHE:

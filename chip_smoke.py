@@ -142,8 +142,9 @@ and K4 (flash_attention: split-head attention on the same kernel, the
 route Attention takes under BATRACK_TPU_ATTN=flash) against their plain
 versions, and times them beside scaled_dot_product_attention. It holds
 K1's two options, the tensor-core contraction (contract="mxu") and int8
-maps (fmap_dtype="int8"), at K1's shapes against their plain versions and
-times them; then it drives the path that selects them,
+maps (fmap_dtype="int8"), two more instantiations of K1's kernel, at K1's
+shapes against their plain versions and times them; then it drives the
+path that selects them,
 scripts/torch_corr_ab.py, with their launch counters set to 0 just before
 and read just after. Last in phase 2, K2 packed, K2 kv= (slim and packed
 sources), K3 and K4 are held against their plain versions at the edges of
@@ -155,8 +156,9 @@ limits: K4 must launch as often as K2 does there, every time on the split
 views in place (its strided counter), and K2 not at all. Phases 4 and 6
 check 24 attention launches and 4 K1 launches per append (6 space blocks x
 4 iterations, one K1 per iteration), and that K3, K4 and K1's options
-launch 0 times. Phase 2 prints, beside K1's bound, the bytes of its in-map
-taps and of the resident levels' map copies.
+launch 0 times. Phase 2 prints, beside the bound of K1 and of each of its
+options, the bytes of its in-map taps and of the resident levels' map
+copies, and the blocks an SM holds.
 
 It then prints one {"kernels": [...]} line (phase 9 adds the keyframe
 path's launches to K1's and K2's entries, K1's check and timing at that
@@ -359,13 +361,16 @@ def k1_bound(pyr, targets, coords, radius, taps, contract="vpu"):
 
 def phase_k1(dev, gen):
     """K1 on bf16 maps with the float32 contraction (the tracker's), then
-    its two options, the tensor-core contraction and int8 maps, at the
-    davis_demo shapes against their plain versions (1e-4: exact products,
-    sums in another order), each timed beside its plain version and its
-    bound. No single PyTorch call computes the windows: no library time."""
+    its two options, the tensor-core contraction and int8 maps (two more
+    instantiations of the same kernel), at the davis_demo shapes against
+    their plain versions (1e-4: exact products, sums in another order),
+    each timed beside its plain version and its bound, with its tap bytes,
+    its resident levels and the blocks an SM holds. No single PyTorch call
+    computes the windows: no library time."""
     from batrack_tpu_torch.ops.corr import build_pyramid
-    from batrack_tpu_torch.ops.corr_kernel import (RES_CHUNK, corr_sample, corr_sample_plain,
-                                                   pack_pyramid, resident_levels)
+    from batrack_tpu_torch.ops.corr_kernel import (RES_CHUNK, blocks_per_sm, corr_sample,
+                                                   corr_sample_plain, pack_pyramid,
+                                                   resident_levels)
     from batrack_tpu_torch.utils.config import full_fp32
 
     log(f"[K1] corr_sample: fmaps ({S}, {C}, {H4}, {W4}) x {LEVELS} levels, "
@@ -378,14 +383,6 @@ def phase_k1(dev, gen):
     pyramid = build_pyramid(fm, LEVELS)
     shapes = [tuple(fl.shape[2:]) for fl in pyramid]
     taps = k1_taps(shapes, coords, RADIUS)
-    # what the main kernel reads beside the bound's bytes: its in-map taps
-    # (256 bytes each, read from shared memory for resident levels and
-    # through the L2 for streamed ones) and the copies of the resident
-    # levels' maps, one per (frame, chunk of RES_CHUNK tracks)
-    resident = resident_levels(shapes, C)
-    tap_mb = taps * 2 * C / 1e6
-    resident_mb = sum(S * -(-NQ // RES_CHUNK) * h * w * C * 2
-                      for (h, w), res in zip(shapes, resident) if res) / 1e6
     entries = []
     for fd, ct, name, line in (("bf16", "vpu", "corr_sample", 52),
                                ("bf16", "mxu", "corr_sample_mxu", 110),
@@ -401,12 +398,20 @@ def phase_k1(dev, gen):
             plain_ms = cuda_ms(lambda: corr_sample_plain(pyr, targets, coords, RADIUS,
                                                          contract=ct), reps=5)
         bound_ms, bound_by, nbytes = k1_bound(pyr, targets, coords, RADIUS, taps, ct)
-        log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
+        log(f"  {name}: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
             f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {2 * C * taps / 1e9:.2f} "
             f"GFLOP {'bf16' if ct == 'mxu' else 'f32'})")
-        if name == "corr_sample":
-            log(f"  tap bytes {tap_mb:.1f} MB (in-map taps x {2 * C} B); levels resident in "
-                f"shared memory {resident}, their map copies {resident_mb:.1f} MB")
+        # what the kernel reads beside the bound's bytes: its in-map taps
+        # (C bytes per element, from shared memory for resident levels and
+        # through the L2 for streamed ones) and the copies of the resident
+        # levels' maps, one per (frame, chunk of RES_CHUNK tracks)
+        elem = pyr.flat.element_size()
+        resident = resident_levels(shapes, C, elem)
+        resident_mb = sum(S * -(-NQ // RES_CHUNK) * h * w * C * elem
+                          for (h, w), res in zip(shapes, resident) if res) / 1e6
+        log(f"  tap bytes {taps * C * elem / 1e6:.1f} MB (in-map taps x {C * elem} B); levels "
+            f"resident in shared memory {resident}, their map copies {resident_mb:.1f} MB; "
+            f"{blocks_per_sm(pyr, ct)} blocks per SM")
         entries.append({"name": name, "route": "cuda",
                         "source": "batrack_tpu_torch/csrc/corr_sample.cu",
                         "replaces": f"batrack_tpu/ops/pallas_corr.py:{line}",
@@ -2733,6 +2738,14 @@ def main_ranks() -> int:
     return 0
 
 
+# the kernels' names in ptxas's report (mangled; the first match names it)
+KERNEL_NAMES = {"attention_bf16_wgmma_kernel": "attention_bf16_wgmma_kernel",
+                "attention_f32_kernel": "attention_f32_kernel",
+                "corr_sample_kernelILi3ELb0E": "corr_sample_kernel<3 terms, bf16>",
+                "corr_sample_kernelILi1ELb0E": "corr_sample_kernel<1 term, bf16> (mxu)",
+                "corr_sample_kernelILi3ELb1E": "corr_sample_kernel<3 terms, int8>"}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2777,9 +2790,7 @@ def main() -> int:
         for ln in text.splitlines():
             if "Function properties for" in ln:
                 fn = ln.split("Function properties for ")[1].strip()
-                fn = next((k for k in ("attention_bf16_wgmma_kernel", "attention_f32_kernel",
-                                       "corr_sample_mxu_kernel", "corr_sample_int8_kernel",
-                                       "corr") if k in fn), fn[:40])
+                fn = next((v for k, v in KERNEL_NAMES.items() if k in fn), fn[:40])
             elif "spill" in ln or "Used " in ln or "C75" in ln:
                 log(f"  {name} {fn}: {ln.replace('ptxas info    :', '').strip()}")
 

@@ -1,15 +1,17 @@
 """Stage 1 of batrack_tpu_torch against batrack_tpu: the linear resize, the
 pos-embed bicubic, DepthAnythingV2 layer by layer and whole, infer_depth,
-the numpy replicas of OpenCV's uint8 bicubic and nearest-exact resizes,
-the alignment, the weight round trips and the safetensors reader.
+the network's input (cv2's uint8 bicubic) and the alignment's
+nearest-exact resize, the alignment, the weight round trips and the
+safetensors reader.
 
 The same seeded numpy inputs and the same weights go to both packages: the
 port's modules are made from a seed, their weights moved off the default
 init (torch_parity.perturb_), and the JAX package gets them through its own
 converter (convert_da2_checkpoint). At vits and 70x98 inputs.
 
-Tolerances: 1e-6 absolute for the resizes (inputs in [0, 1)), 1e-4
-relative for the networks; the replicas and the alignment bitwise.
+Tolerances: 1e-6 absolute for the linear resizes (inputs in [0, 1)), 1e-4
+relative for the networks; the network's input, the nearest-exact resize
+and the alignment bitwise.
 """
 
 import cv2
@@ -22,7 +24,7 @@ from torch_parity import perturb_
 
 from batrack_tpu.depth import align as jalign
 from batrack_tpu.depth import dpt as jdpt
-from batrack_tpu_torch.depth import align, cvresize, dpt
+from batrack_tpu_torch.depth import align, dpt
 from batrack_tpu_torch.ops.sampling import resize_linear
 from batrack_tpu_torch.utils.tensorfile import read_safetensors, write_safetensors
 
@@ -175,74 +177,46 @@ def test_load_checkpoint_takes_a_saved_state_dict(da2, tmp_path):
         assert np.array_equal(v.numpy(), sd[k]), k
 
 
-CUBIC_SHAPES = [((480, 640), (518, 686)), ((126, 168), (140, 182)), ((126, 168), (98, 126)),
-                ((37, 41), (100, 77)), ((480, 640), (240, 320)), ((127, 171), (518, 700))]
+# cv2's process-wide IPP setting as the process starts: on in cv2's default build
+IPP_DEFAULT = cv2.ipp.useIPP()
+IPP_SETTINGS = {"default": IPP_DEFAULT, "off": False}
 
 
-@pytest.mark.parametrize("src_hw,dst_hw", CUBIC_SHAPES)
-def test_cubic_replica_matches_opencv(src_hw, dst_hw):
-    """Bitwise against OpenCV's own uint8 INTER_CUBIC (its fixed-point
-    horizontal pass and float32 SIMD lanes), which cv2 runs with IPP off.
-    cv2's default build hands this resize to Intel IPP, whose rounding
-    differs: there the replica is held to one uint8 level, and the count of
-    values that differ is printed."""
-    rng = np.random.default_rng(sum(src_hw + dst_hw))
-    img = rng.integers(0, 256, src_hw + (3,), dtype=np.uint8)
-    got = cvresize.resize_cubic_u8(img, dst_hw)
-    use_ipp = cv2.ipp.useIPP()
+@pytest.mark.parametrize("ipp", list(IPP_SETTINGS))
+@pytest.mark.parametrize("src_hw,input_size", [((480, 640), 518), ((480, 854), 518),
+                                               ((436, 1024), 518), ((127, 171), 518),
+                                               ((126, 168), 126), ((37, 41), 70)])
+def test_preprocess_against_jax(src_hw, input_size, ipp):
+    """dpt.preprocess against the JAX package's, bitwise, with both under
+    the same IPP setting (cv2 hands the uint8 bicubic to Intel IPP by
+    default, whose rounding differs from OpenCV's own path). At the
+    pipeline's frames (480x640, DAVIS 480x854, Sintel 436x1024) and at
+    small and odd ones."""
+    img = np.random.default_rng(sum(src_hw) + input_size).integers(
+        0, 256, src_hw + (3,), dtype=np.uint8)
+    before = cv2.ipp.useIPP()
     try:
-        cv2.ipp.setUseIPP(False)
-        ref = cv2.resize(img, dst_hw[::-1], interpolation=cv2.INTER_CUBIC)
-        np.testing.assert_array_equal(got, ref)
-        gray = np.ascontiguousarray(img[..., 1])
-        np.testing.assert_array_equal(cvresize.resize_cubic_u8(gray, dst_hw),
-                                      cv2.resize(gray, dst_hw[::-1], interpolation=cv2.INTER_CUBIC))
+        cv2.ipp.setUseIPP(IPP_SETTINGS[ipp])
+        got = dpt.preprocess(img, input_size)
+        ref = jdpt.preprocess(img, input_size)
     finally:
-        cv2.ipp.setUseIPP(use_ipp)
-    default = cv2.resize(img, dst_hw[::-1], interpolation=cv2.INTER_CUBIC)
-    diff = np.abs(got.astype(int) - default)
-    print(f"cv2 default (IPP {use_ipp}) {src_hw}->{dst_hw}: {(diff > 0).sum()} of {diff.size} "
-          "values differ by one level")
-    assert diff.max() <= 1
+        cv2.ipp.setUseIPP(before)
+    assert got.shape == ref.shape == (1,) + dpt.preprocess_shape(src_hw, input_size) + (3,)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("src_hw,dst_hw", [((126, 168), (126, 168)), ((126, 168), (252, 336)),
                                            ((480, 640), (240, 320)), ((518, 686), (480, 640)),
                                            ((37, 41), (100, 77))])
-def test_nearest_exact_replica(src_hw, dst_hw):
-    """OpenCV 4's INTER_NEAREST_EXACT rule, source (x * ifx + ifx/2 - W%2) >>
-    16 in 16.16 fixed point: equal to cv2 at the shapes the pipeline gives it
-    (the disparity and the metric depth are both at the frame's size) and at
-    whole ratios; at other ratios the cv2 build here (5.x) moves a source
-    index that sits on a pixel boundary by one at some outputs, so there each
-    index is held within one of cv2's and the count is printed."""
-    rng = np.random.default_rng(0)
-    img = rng.normal(size=src_hw).astype(np.float32)
-    got = cvresize.resize_nearest_exact(img, dst_hw)
-    ref = cv2.resize(img, dst_hw[::-1], interpolation=cv2.INTER_NEAREST_EXACT)
-    assert got.shape == ref.shape == dst_hw
-    ratio_whole = all(a % b == 0 or b % a == 0 for a, b in zip(src_hw, dst_hw))
-    if ratio_whole:
-        np.testing.assert_array_equal(got, ref)
-        return
-    idx = np.arange(np.prod(src_hw), dtype=np.float64).reshape(src_hw)
-    gi = cvresize.resize_nearest_exact(idx, dst_hw)
-    ri = cv2.resize(idx.astype(np.float32), dst_hw[::-1], interpolation=cv2.INTER_NEAREST_EXACT)
-    dy = np.abs(gi // src_hw[1] - ri // src_hw[1])
-    dx = np.abs(gi % src_hw[1] - ri % src_hw[1])
-    print(f"{src_hw}->{dst_hw}: {(dy + dx > 0).sum()} of {dy.size} source indices differ")
-    assert dy.max() <= 1 and dx.max() <= 1 and (dy + dx > 0).mean() < 0.01
-
-
-def test_preprocess_against_jax():
-    """dpt.preprocess against the JAX package's (cv2 bicubic) at the
-    pipeline's 480x640 frame: same shape; pixels within one uint8 level
-    after the ImageNet normalisation (bitwise where cv2 runs without IPP)."""
-    img = np.random.default_rng(5).integers(0, 256, (480, 640, 3), dtype=np.uint8)
-    got = dpt.preprocess(img)
-    ref = jdpt.preprocess(img)
-    assert got.shape == ref.shape == (1, 518, 686, 3)
-    assert np.abs(got - ref).max() <= 1.0 / 255.0 / dpt.IMAGENET_STD.min() + 1e-6
+def test_resize_nearest_matches_jax(src_hw, dst_hw):
+    """align.resize_nearest (the alignment's disparity resize) against the
+    JAX package's, bitwise, at whole and other ratios."""
+    img = np.random.default_rng(0).normal(size=src_hw).astype(np.float32)
+    got = align.resize_nearest(img, dst_hw)
+    ref = jalign.resize_nearest(img, dst_hw)
+    assert got.shape == ref.shape == dst_hw and got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_align_depth_sequence_matches_jax():

@@ -26,6 +26,7 @@ from test_torch_depth_cli import RTOL, da2_checkpoint, rel_err, unidepth_checkpo
 
 HW = (130, 170)
 SCENE = "clip"
+IPP_DEFAULT = cv2.ipp.useIPP()  # cv2's process-wide setting as the process starts
 
 
 def write_jpegs(img_dir, n, seed):
@@ -47,20 +48,21 @@ def files(tmp_path_factory):
     return root
 
 
-def test_infer_depth_cli_on_jpeg_matches_jax(files, tmp_path):
-    """130x170 frames resize to 126x168 for the network: the JAX CLI runs
-    cv2's bicubic with Intel IPP off, the OpenCV path the port's numpy
-    replica follows (with IPP on, cv2 moves some values by one level: the
-    recorded deviation of depth/cvresize.py, ROADMAP C)."""
+@pytest.mark.parametrize("ipp", ["default", "off"])
+def test_infer_depth_cli_on_jpeg_matches_jax(files, tmp_path, ipp):
+    """130x170 frames resize to 126x168 for the network, by cv2's bicubic in
+    both packages: both CLIs run under the same IPP setting, cv2's default
+    (IPP on in its default build) or off, and each package follows it."""
     args = ["--img_dir", str(files / "data" / SCENE), "--checkpoint",
             str(files / "da2_vits.pth"), "--encoder", "vits", "--input_size", "126"]
-    ipp = cv2.ipp.useIPP()
-    cv2.ipp.setUseIPP(False)
+    before = cv2.ipp.useIPP()
     try:
+        cv2.ipp.setUseIPP(IPP_DEFAULT if ipp == "default" else False)
         assert jinfer_cli.main(args + ["--out_dir", str(tmp_path / "jax")]) == 0
+        assert infer_depth.main(args + ["--out_dir", str(tmp_path / "port"),
+                                        "--device", "cpu"]) == 0
     finally:
-        cv2.ipp.setUseIPP(ipp)
-    assert infer_depth.main(args + ["--out_dir", str(tmp_path / "port"), "--device", "cpu"]) == 0
+        cv2.ipp.setUseIPP(before)
     names = sorted(os.listdir(tmp_path / "jax"))
     assert names == sorted(os.listdir(tmp_path / "port")) == [f"{i:05d}.npy" for i in range(3)]
     for n in names:

@@ -14,10 +14,11 @@ its running maximum) and round the output to bf16, so a correct kernel is
 one output rounding off the plain version, while a kernel that drops a
 key tile is many ulps off. The shapes leave the bf16 kernel's 128-query
 and 128-key tiles ragged, and the "tiles" key masks mask whole key tiles,
-under the same limits. K1's int8 and mxu variants are held to 1e-4 like
-K1 (exact products, sums in another order; K1's three-term bf16 split of
-the target leaves about 5e-7 of the terms' size), K4 (split-head attention
-on the same kernel) to K2's limits.
+under the same limits. K1's int8 and mxu variants (instantiations of K1's
+kernel) are held to 1e-4 like K1 (exact products, sums in another order;
+the three-term bf16 split of the target, which K1 and its int8 variant
+use, leaves about 5e-7 of the terms' size), K4 (split-head attention on
+the same kernel) to K2's limits.
 """
 
 import math
@@ -177,6 +178,20 @@ def test_corr_kernel_residency(S, H, W, L, resident):
     assert resident_map_bytes(9, 13) == 2 * 15 * 1024  # halves rounded up to 1024 bytes
 
 
+def test_corr_kernel_int8_residency():
+    """int8 maps take one byte per channel, one 128-byte section per tap:
+    at davis_demo levels 2-3 stay resident and level 1 (48x64x128 = 384 KB)
+    is still streamed; a level that fits only at one byte per channel is
+    resident for int8 maps alone."""
+    davis = [(96, 128), (48, 64), (24, 32), (12, 16)]
+    assert resident_levels(davis, 128, 1) == (False, False, True, True)
+    assert resident_map_bytes(24, 32, 128, 1) == 98304
+    assert resident_map_bytes(48, 64, 128, 1) == 393216
+    assert resident_map_bytes(9, 13, 128, 1) == 15 * 1024
+    assert resident_levels([(32, 40)], 128, 1) == (True,)
+    assert resident_levels([(32, 40)], 128, 2) == (False,)
+
+
 def test_flash_attention_direct_route_strides():
     """K4 reads q, k and v in place when they are head splits of packed rows
     (strides (N*R, 48, R, 1), R % 8 == 0, 16-byte bases): the tracker's
@@ -247,18 +262,21 @@ def test_corr_kernel_matches_plain_on_gpu(rng, cuda, L, shape, margin):
 
 
 @pytest.mark.gpu
-def test_corr_kernel_keeps_float32_targets_on_gpu(rng, cuda):
+@pytest.mark.parametrize("fmap_dtype", ["bf16", "int8"])
+def test_corr_kernel_keeps_float32_targets_on_gpu(rng, cuda, fmap_dtype):
     """K1 contracts the float32 target as three bf16 terms on the tensor
-    cores: within 3e-6 of a float64 evaluation of the same windows. A CPU
-    emulation of the split over 20,000 windows (N(0, 1) maps and targets,
-    scaled by 1/sqrt(128)) gives 6.2e-7 for three terms and 1.2e-5 for two,
-    so this check sees a lost term that the 1e-4 limit against the float32
-    plain version does not."""
+    cores, on bf16 maps and on int8 maps converted to bf16: within 3e-6 of
+    a float64 evaluation of the same windows (int8: of the dequantised
+    maps). A CPU emulation of the split over 20,000 windows (N(0, 1) maps
+    and targets, scaled by 1/sqrt(128)) gives 6.2e-7 for three terms and
+    1.2e-5 for two, so this check sees a lost term that the 1e-4 limit
+    against the float32 plain version does not."""
     S, N, H, W, L = 2, 50, 64, 80, 3  # streamed and resident levels
     fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=128, N=N, H=H, W=W))
-    pyr = pack_pyramid(corr.build_pyramid(fm, L))
+    pyr = pack_pyramid(corr.build_pyramid(fm, L), fmap_dtype)
     out = corr_sample(pyr, tg, xy, 3)
-    levels = [pyr.level(lvl).double().permute(0, 3, 1, 2) for lvl in range(L)]
+    levels = [pyr.level(lvl).double().permute(0, 3, 1, 2)
+              * (1.0 if pyr.scales is None else pyr.scales[lvl].double()) for lvl in range(L)]
     ref = corr.corr_sample_pyramid(levels, tg.double().transpose(0, 1), xy.double(), 3)
     torch.testing.assert_close(out.double(), ref.transpose(0, 1), atol=3e-6, rtol=0)
 
@@ -348,12 +366,19 @@ def test_vmem_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, N):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmap_dtype,contract", [("bf16", "mxu"), ("int8", "vpu")])
-@pytest.mark.parametrize("L,shape,margin", [(4, (3, 70, 24, 32), 8.0), (2, (2, 33, 9, 13), 8.0),
-                                            (3, (2, 41, 16, 24), 60.0)])
+@pytest.mark.parametrize("L,shape,margin", [
+    (4, (3, 70, 24, 32), 8.0),    # every level resident
+    (2, (2, 33, 9, 13), 8.0),
+    (3, (2, 41, 16, 24), 60.0),   # most windows partly or wholly outside the map
+    (3, (2, 50, 64, 80), 8.0),    # resident and streamed levels in one launch, for both
+    (3, (3, 301, 64, 80), 60.0),  # streamed boxes far out, ragged last chunks
+])
 def test_corr_kernel_options_match_plain_on_gpu(rng, cuda, fmap_dtype, contract, L, shape,
                                                 margin):
-    """K1's mxu and int8 variants == their plain versions (1e-4); the last
-    shape puts most windows far outside the map, partly or wholly."""
+    """K1's mxu and int8 variants == their plain versions (1e-4), with levels
+    resident and streamed in one launch (bf16 keeps level 2 of 64x80 maps
+    resident, int8 levels 1-2), windows far outside the map, and ragged
+    chunks; only the variant's own counter moves."""
     S, N, H, W = shape
     fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=128, N=N, H=H, W=W, margin=margin))
     pyr = pack_pyramid(corr.build_pyramid(fm, L), fmap_dtype)
@@ -370,6 +395,23 @@ def test_corr_kernel_options_match_plain_on_gpu(rng, cuda, fmap_dtype, contract,
     if fmap_dtype == "int8":
         with pytest.raises(ValueError, match="int8"):
             corr_sample(pyr, tg, xy, 3, contract="mxu")
+    if shape[1] == 50:
+        assert resident_levels(pyr.shapes, 128, pyr.flat.element_size()) == (
+            (False, True, True) if fmap_dtype == "int8" else (False, False, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmap_dtype,contract", [("bf16", "mxu"), ("int8", "vpu")])
+def test_corr_kernel_options_raise_on_other_radius_on_gpu(rng, cuda, fmap_dtype, contract):
+    """The variants run on K1's pipeline, which takes radius 3 only: radius
+    2 raises ValueError before any launch."""
+    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=2, C=128, N=5, H=16, W=24))
+    pyr = pack_pyramid(corr.build_pyramid(fm, 2), fmap_dtype)
+    counters = ("launches", "mxu_launches", "int8_launches")
+    before = {c: getattr(corr_sample, c) for c in counters}
+    with pytest.raises(ValueError, match="radius"):
+        corr_sample(pyr, tg, xy, 2, contract=contract)
+    assert {c: getattr(corr_sample, c) for c in counters} == before
 
 
 @pytest.mark.gpu

@@ -46,7 +46,7 @@ def test_import_leaves_jax_and_batrack_tpu_out():
             "batrack_tpu_torch.refine.refine_net", "batrack_tpu_torch.refine.trainer",
             "batrack_tpu_torch.utils.evaluation", "batrack_tpu_torch.utils.traj",
             "batrack_tpu_torch.depth.dpt", "batrack_tpu_torch.depth.unidepth",
-            "batrack_tpu_torch.depth.align", "batrack_tpu_torch.depth.cvresize",
+            "batrack_tpu_torch.depth.align",
             "batrack_tpu_torch.cli.infer_depth", "batrack_tpu_torch.cli.infer_metric_depth",
             "batrack_tpu_torch.cli.align_depth", "batrack_tpu_torch.cli.vis_results",
             "batrack_tpu_torch.utils.visualizer", "batrack_tpu_torch.utils.tensorfile",
@@ -87,8 +87,10 @@ def test_sources_name_no_jax_flax_or_batrack_tpu():
 
 
 # cv2 may be imported only inside functions of these modules, for the
-# features that need it (JPEG frames, sift patches, the track video)
-CV2_MODULES = ("data/image.py", "slam/ingest.py", "utils/visualizer.py")
+# features that need it (JPEG frames, sift patches, the track video, and
+# stage 1's resizes, which are cv2's in the JAX package)
+CV2_MODULES = ("data/image.py", "slam/ingest.py", "utils/visualizer.py", "depth/dpt.py",
+               "depth/align.py")
 
 
 def _library_rule_offenders(pkg: Path, extra_files=()):
@@ -126,7 +128,8 @@ def test_sources_import_no_optional_library_at_module_level():
     imports matplotlib inside plot_trajectory, which skips the plot
     without it). None imports scipy, PIL or safetensors anywhere, and cv2
     only inside functions of data/image.py (JPEG frames), slam/ingest.py
-    (sift patches) and utils/visualizer.py (the track video)."""
+    (sift patches), utils/visualizer.py (the track video), depth/dpt.py
+    and depth/align.py (stage 1's resizes)."""
     pattern = re.compile(r"^(import|from)\s+(scipy|cv2|PIL|matplotlib|safetensors)\b")
     root = PKG.parent
     files = sorted(PKG.rglob("*.py")) + [root / "chip_smoke.py"]
