@@ -49,7 +49,7 @@ Phases, each of which fails the run when it fails:
    error_sum.txt equal at its rounding to eval_metrics recomputed from the
    written trajectory; `cli.run_refine.main` (grid 10, 200 steps) and
    `cli.eval_depth.main` with and without --refined. Then stage 3 at the
-   same shape (T=40, N=400, S=23) on a synthetic results dict: 8 Adam steps
+   same shape (T=40, N=400, S=23) on a synthetic results dict: 4 Adam steps
    in float64 on the card against the CPU within 10x a witness (the CPU
    run of inputs moved by one float64 rounding) and at least 1e-5, and 200
    steps of tests/test_refine.py::test_scale_recovery's configuration in
@@ -135,6 +135,19 @@ Phases, each of which fails the run when it fails:
    ViT-L files, each stage's files checked. Prints each script's seconds
    (and the pose scripts' frames/s), b's frames/s, stage ms and peak
    memory, and the phase's seconds.
+12. the port's measurement entry points, each run once as a subprocess at
+   its full configuration, as a user runs it: bench_torch.py and
+   bench_torch.py --mesh 1 (davis_demo over 64 frames: frames/s, stage ms
+   by CUDA events, predicted against measured ms per 2 frames, the
+   tracker's GFLOP, MFU against the H100's bf16 peak, launches per append
+   from the counters), scripts/torch_tracker_breakdown.py (the tracker
+   forward by component), bench_refine_torch.py (stage 3 on a Sintel-sized
+   scene) and bench_depth_torch.py (DA2 and UniDepthV2 at ViT-L). Each
+   must exit 0 with its JSON line parsed and its numbers finite and
+   positive, MFU set on an H100, K1 4 and K2 24 launches per append (K2 on
+   the kv= route under the mesh), every other counter 0, and the
+   breakdown's 4 K1 launches and I UpdateFormer calls per forward. Prints
+   each script's seconds and reading, and the phase's seconds.
 
 Phase 4 also prints the tracker forward's TFLOP (utils/flops.py) and
 TFLOP/s at its synchronised ms per append.
@@ -188,12 +201,13 @@ path's launches to K1's and K2's entries, K1's check and timing at that
 path's shape under "keyframe_path" and K2's masked ones under "masked";
 phase 10 its launches and first-append checks under "davis_jpeg_path",
 phase 11 its launches, first-append checks and times at 1536 tracks under
-"sintel_path"),
-the card's name and power limit
+"sintel_path"; phase 12 runs in subprocesses, whose launches stay out of
+it), the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
-result. The sha256 it prints first covers this script and every source of
-batrack_tpu_torch/, and ties a run's numbers to a tree.
+result. The sha256 it prints first covers this script, the scripts its
+phases run and every source of batrack_tpu_torch/, and ties a run's
+numbers to a tree.
 """
 
 from __future__ import annotations
@@ -265,13 +279,15 @@ TOL = {"k1": 1e-4, "k2_f32": 1e-4,
 
 
 def source_digest() -> str:
-    """sha256 over this script, the scripts phases 2 and 11 run
+    """sha256 over this script, the scripts phases 2, 11 and 12 run
     (scripts/torch_corr_ab.py, scripts/torch_validate_checkpoint.py,
-    scripts/torch_*/*.sh) and every .py/.cu file of batrack_tpu_torch/."""
+    scripts/torch_*/*.sh, MEASUREMENT_SCRIPTS) and every .py/.cu file of
+    batrack_tpu_torch/."""
     root = Path(__file__).resolve().parent
     scripts = root / "scripts"
     files = ([root / "chip_smoke.py", scripts / "torch_corr_ab.py",
               scripts / "torch_validate_checkpoint.py"] + sorted(scripts.glob("torch_*/*.sh"))
+             + [root / f for f in MEASUREMENT_SCRIPTS]
              + sorted(p for p in (root / "batrack_tpu_torch").rglob("*")
                       if p.suffix in (".py", ".cu")))
     h = hashlib.sha256()
@@ -280,22 +296,20 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
+# phase 12: the port's measurement entry points, run as a user runs them
+MEASUREMENT_SCRIPTS = ("bench_torch.py", "scripts/torch_tracker_breakdown.py",
+                       "bench_refine_torch.py", "bench_depth_torch.py")
+
+
 def log(*a):
     print(*a, flush=True)
 
 
 def cuda_ms(fn, reps, warmup=2):
     """Device time per call from CUDA events around `reps` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from batrack_tpu_torch.utils.profiling import device_ms
+
+    return device_ms(fn, reps, warmup, "cuda")
 
 
 def max_err(a, b):
@@ -1789,7 +1803,9 @@ def phase_ranks(cfg, images, depths, mesh, gen):
 
 # ---------------------------------------------------------------- the user's pipeline
 GT_DEPTH_SCALE = 1.01         # the .dpt ground truth is the prior x 1.01 (tests/test_cli_e2e.py)
-REFINE_CHECK_STEPS = 8
+# the CPU's float64 runs (the reference and its witness) take 7-10 s per step
+# on the H100 machine's CPU: 4 steps keep the script inside its time limit
+REFINE_CHECK_STEPS = 4
 REFINE_GT_DEPTH = 5.0         # tests/test_refine.py's flat scene
 
 
@@ -2020,7 +2036,7 @@ def refine_results(rng, T, N, S, scale_errs):
 
 
 def phase_refine(dev, T, N, S, profile=False):
-    """Phase 7b: stage-3 numerics at the pipeline's shape. Eight Adam steps
+    """Phase 7b: stage-3 numerics at the pipeline's shape. Four Adam steps
     of every loss in float64 on the card against the CPU, within 10x a
     witness (the CPU run of inputs moved by one float64 rounding) and at
     least 1e-5: in float32 the first steps' signs sit on rounding (Adam
@@ -2114,16 +2130,9 @@ DENSE_GRID, DENSE_NITER = 12, 300                       # scripts/demo/run_dense
 
 def all_launches():
     """Every kernel counter of the port."""
-    from batrack_tpu_torch.ops.attention import (flash_attention, fused_qkv_attention,
-                                                 vmem_attention)
-    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+    from batrack_tpu_torch.ops import launch_counts
 
-    return {"corr_sample": corr_sample.launches, "corr_sample_mxu": corr_sample.mxu_launches,
-            "corr_sample_int8": corr_sample.int8_launches,
-            "fused_qkv_attention": fused_qkv_attention.launches,
-            "fused_qkv_attention_kv": fused_qkv_attention.kv_launches,
-            "vmem_attention": vmem_attention.launches,
-            "flash_attention": flash_attention.launches}
+    return launch_counts()
 
 
 def zero_all_launches():
@@ -3089,6 +3098,114 @@ def phase_journeys(dev, work):
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 12
+def run_measurement(args):
+    """`python args` from the repo root as a subprocess, as a user runs it:
+    (wall s, the JSON objects it printed, one per line, its stdout). Raises
+    on a non-zero exit or no JSON line."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} returned {r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"{' '.join(args)} printed no JSON line:\n{r.stdout[-3000:]}")
+    return wall, lines, r.stdout
+
+
+def require_positive(what, values):
+    """Each of `values` (name -> number) is a finite number > 0."""
+    bad = {k: v for k, v in values.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{what}: not finite and positive: {bad}")
+
+
+def phase_measurements(cfg):
+    """Phase 12: the port's measurement entry points as subprocesses at
+    their full configurations: bench_torch.py (and --mesh 1),
+    scripts/torch_tracker_breakdown.py, bench_refine_torch.py and
+    bench_depth_torch.py. Each exits 0 and prints its JSON line, whose
+    numbers are finite and positive; bench_torch's mfu is set on an H100,
+    its launches per append are the code's (K1 4, K2 24; K2 on the kv=
+    route under the mesh) and every other counter reads 0; the breakdown
+    counts 4 K1 launches and I UpdateFormer calls per forward."""
+    t_phase = time.perf_counter()
+    _, k1_per, k2_per = launches_per_append(cfg)
+    h100 = "H100" in torch.cuda.get_device_name(0)
+    out = {}
+    for mesh in (False, True):
+        name = "bench_torch" + ("_mesh1" if mesh else "")
+        wall, (res,), _ = run_measurement(["bench_torch.py"] + (["--mesh", "1"] if mesh else []))
+        st, lp = res["stage_ms"], res["launches_per_append"]
+        log(f"[{name}] {wall:.1f} s: {res['value']:.3f} frames/s, {res['config']}; stage ms "
+            f"{json.dumps(st)}; tracker {res['tracker_gflops_per_call']:.1f} GFLOP per call "
+            f"(flop counter, kernels unseen: {res['tracker_gflops_flop_counter']:.1f}); mfu "
+            f"{res['mfu']}; launches per append {json.dumps(lp)} over {res['appends']} appends")
+        log(f"  predicted {st['predicted_ms_per_2frames']:.3f} ms per 2 frames against "
+            f"measured {st['measured_ms_per_2frames']:.3f}")
+        require_positive(name, {"value": res["value"], **st,
+                                "tracker_gflops_per_call": res["tracker_gflops_per_call"]})
+        if h100:
+            require_positive(f"{name} mfu on an H100", {"mfu": res["mfu"]})
+        check(f"{name}: K1 launches per append against the code's {k1_per}",
+              abs(lp["corr_sample"] - k1_per), 0)
+        check(f"{name}: K2 launches per append against the code's {k2_per}",
+              abs(lp["fused_qkv_attention"] - k2_per), 0)
+        check(f"{name}: K2 kv= launches per append against {k2_per if mesh else 0}",
+              abs(lp["fused_qkv_attention_kv"] - (k2_per if mesh else 0)), 0)
+        check(f"{name}: off-path launches (K3, K4, K1's options)",
+              sum(lp[k] for k in OFF_PATH), 0)
+        out[name] = {"seconds": wall, **{k: res[k] for k in (
+            "value", "stage_ms", "tracker_gflops_per_call", "tracker_gflops_flop_counter",
+            "mfu", "launches_per_append", "device")}}
+
+    wall, (res,), stdout = run_measurement(["scripts/torch_tracker_breakdown.py"])
+    log(f"[tracker breakdown] {wall:.1f} s")
+    log("\n".join(ln for ln in stdout.splitlines() if not ln.startswith("{")))
+    rows = {r["row"]: r for r in res["rows"]}
+    require_positive("breakdown", {k: r["ms_per_call"] for k, r in rows.items()})
+    corr = next(r for k, r in rows.items() if k.startswith("corr"))
+    former = next(r for k, r in rows.items() if k.startswith("UpdateFormer"))
+    check(f"breakdown: K1 launches per forward against {k1_per}", abs(corr["calls"] - k1_per), 0)
+    check(f"breakdown: UpdateFormer calls per forward against I={cfg.model.I}",
+          abs(former["calls"] - cfg.model.I), 0)
+    out["tracker_breakdown"] = {"seconds": wall, "rows": res["rows"],
+                                "accounted_ms": res["accounted_ms"],
+                                "residual_ms": res["residual_ms"]}
+
+    wall, (res,), _ = run_measurement(["bench_refine_torch.py"])
+    log(f"[bench_refine_torch] {wall:.1f} s: {res['value']:.3f} Adam iterations/s over "
+        f"{res['niter']} at {json.dumps(res['scene'])}, {res['sec_per_scene']:.2f} s, final "
+        f"loss {res['final_loss']:.6f}, peak {res['peak_memory_gib']:.2f} GiB")
+    require_positive("bench_refine_torch", {k: res[k] for k in (
+        "value", "sec_per_scene", "final_loss", "peak_memory_gib")})
+    out["bench_refine"] = {"seconds": wall, **{k: res[k] for k in (
+        "value", "sec_per_scene", "final_loss", "peak_memory_gib")}}
+
+    wall, lines, _ = run_measurement(["bench_depth_torch.py"])
+    by_metric = {r["metric"]: r for r in lines}
+    if set(by_metric) != {"da2_vitl_fps", "unidepth_vitl_fps"}:
+        raise AssertionError(f"bench_depth_torch printed {sorted(by_metric)}")
+    da2, ud = by_metric["da2_vitl_fps"], by_metric["unidepth_vitl_fps"]
+    log(f"[bench_depth_torch] {wall:.1f} s: DA2 vitl {da2['value']:.3f} frames/s at input "
+        f"{da2['input']}; UniDepthV2 vitl {ud['value']:.3f} frames/s through infer "
+        f"({ud['value_depth_K_only']:.3f} depth and K only) at {ud['network_hw']}")
+    require_positive("bench_depth_torch", {"da2": da2["value"], "unidepth": ud["value"],
+                                           "unidepth_depth_K_only": ud["value_depth_K_only"]})
+    out["bench_depth"] = {"seconds": wall, "da2_vitl_fps": da2["value"], "da2_input": da2["input"],
+                          "unidepth_vitl_fps": ud["value"],
+                          "unidepth_depth_K_only_fps": ud["value_depth_K_only"],
+                          "unidepth_network_hw": ud["network_hw"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main_ranks() -> int:
     """chip_smoke.py --ranks under torchrun: phase_ranks on every rank."""
     import torch.distributed as dist
@@ -3149,7 +3266,8 @@ def main() -> int:
     from batrack_tpu_torch.utils.synth import make_scene
 
     log(f"source sha256 {source_digest()} (chip_smoke.py, scripts/torch_corr_ab.py, "
-        "scripts/torch_validate_checkpoint.py, scripts/torch_*/*.sh, batrack_tpu_torch/ .py .cu)")
+        "scripts/torch_validate_checkpoint.py, scripts/torch_*/*.sh, "
+        f"{', '.join(MEASUREMENT_SCRIPTS)}, batrack_tpu_torch/ .py .cu)")
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3175,6 +3293,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    t_phases = time.perf_counter()
     k1, k1_mxu, k1_int8 = phase_k1(dev, gen)
     ab_launches = phase_corr_ab(dev)
     k2 = phase_k2(dev, gen)
@@ -3202,6 +3321,9 @@ def main() -> int:
         log(f"[davis jpeg] {json.dumps(davis)}")
         journeys = phase_journeys(dev, work)
     log(f"[journeys] {json.dumps(journeys)}")
+    measurements = phase_measurements(cfg)
+    log(f"[measurements] {json.dumps(measurements)}")
+    log(f"[time] phases 2-12: {time.perf_counter() - t_phases:.1f} s after the build")
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]

@@ -69,16 +69,21 @@ def test_import_leaves_jax_and_batrack_tpu_out():
 
 
 def test_sources_name_no_jax_flax_or_batrack_tpu():
-    """No source of the package, chip_smoke.py or scripts/torch_*.py imports
-    jax or flax, or names a module of batrack_tpu (`batrack_tpu.` never
-    matches `batrack_tpu_torch.`); file paths such as
-    batrack_tpu/ops/pallas_corr.py in source notes are allowed."""
+    """No source of the package, chip_smoke.py, scripts/torch_*.py or the
+    root's bench*_torch.py imports jax or flax, or names a module of
+    batrack_tpu (`batrack_tpu.` never matches `batrack_tpu_torch.`); file
+    paths such as batrack_tpu/ops/pallas_corr.py in source notes are
+    allowed."""
     pattern = re.compile(r"import jax|from jax|import flax|from flax|batrack_tpu\."
                          r"|import_module\(\s*[\"'](jax|flax|batrack_tpu)\b")
     root = PKG.parent
     files = ([f for f in sorted(PKG.rglob("*")) if f.suffix in (".py", ".cu", ".cuh", ".h")]
-             + [root / "chip_smoke.py"] + sorted((root / "scripts").glob("torch_*.py")))
+             + [root / "chip_smoke.py"] + sorted((root / "scripts").glob("torch_*.py"))
+             + sorted(root.glob("bench*_torch.py")))
     assert root / "scripts" / "torch_corr_ab.py" in files
+    assert {root / f for f in ("bench_torch.py", "bench_refine_torch.py",
+                               "bench_depth_torch.py",
+                               "scripts/torch_tracker_breakdown.py")} <= set(files)
     offenders = [f"{f.relative_to(root)}:{i}: {line.strip()}"
                  for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
