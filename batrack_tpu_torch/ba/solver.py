@@ -82,9 +82,14 @@ def segment_sum(size: int, *pairs: torch.Tensor, acc=None) -> torch.Tensor:
 
 def all_reduce_sum(mesh, *parts: torch.Tensor):
     """The parts summed over the ranks, through one all_reduce of one flat
-    buffer (one collective per Gauss-Newton step)."""
+    buffer (one collective per Gauss-Newton step), counted in
+    parallel/mesh.py's collective counts."""
+    # parallel/ imports this module: import its counter at the call
+    from batrack_tpu_torch.parallel.mesh import count_collective
+
     flat = torch.cat([p.reshape(-1) for p in parts])
     dist.all_reduce(flat, group=mesh.group)
+    count_collective("all_reduce", flat.dtype, flat.shape)
     return tuple(x.view_as(p) for x, p in zip(flat.split([p.numel() for p in parts]), parts))
 
 

@@ -26,6 +26,10 @@ axes are sharded:
   (`sharded_slam_update`): one all_reduce of the assembled blocks per
   Gauss-Newton step and one all-gather of the keep mask per update.
 
+`collective_counts()` reads the calls, elements and bytes of the two
+collectives the package issues (parallel/mesh.py), which bench_scaling_torch.py
+holds against the models of the wire volume.
+
 Only rank 0 writes artifacts (`BATrack.get_results(save_path=...)` and
 the CLI's files).
 
@@ -40,10 +44,12 @@ step; `get_host_chip_mesh` is a flat group (parallel/mesh.py).
 
 from batrack_tpu_torch.parallel.mesh import (
     Mesh,
+    collective_counts,
     gather_rows,
     get_host_chip_mesh,
     get_mesh,
     init_distributed,
+    reset_collective_counts,
     shard_rows,
 )
 from batrack_tpu_torch.parallel.shard_kernels import (
@@ -55,12 +61,14 @@ from batrack_tpu_torch.parallel.sharded_slot_ba import sharded_slot_slam_update
 
 __all__ = [
     "Mesh",
+    "collective_counts",
     "corr_sample_pyramid_sharded",
     "fused_qkv_attention_sharded",
     "gather_rows",
     "get_host_chip_mesh",
     "get_mesh",
     "init_distributed",
+    "reset_collective_counts",
     "shard_rows",
     "sharded_ba_iteration",
     "sharded_slam_update",

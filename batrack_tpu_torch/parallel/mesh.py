@@ -23,10 +23,19 @@ Backends: NCCL for CUDA devices, gloo only where the caller asks for the CPU.
 `shard_rows` and `gather_rows` move one axis between the replicated and the
 sharded layout: rank r holds rows [r*n_loc, (r+1)*n_loc) of the axis padded
 to a multiple of the world size.
+
+`collective_counts()` reads what the package's collectives moved, as
+`ops.launch_counts()` reads the kernels' launches: per op, the calls, the
+elements and bytes, and the calls per "dtype[shape]". An all-gather counts
+its whole gathered output (every rank's part, its own included, as an HLO
+all-gather's output shape does), an all-reduce its buffer. The package has
+two call sites, `gather_rows` and `ba/solver.py::all_reduce_sum`, and each
+bumps the count of its own call; `reset_collective_counts()` sets them to 0.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -36,6 +45,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from batrack_tpu_torch.utils.config import resolve_device
+
+COLLECTIVES = ("all_gather", "all_reduce")
+_collectives: dict = {}
 
 
 @dataclass(frozen=True)
@@ -129,10 +141,40 @@ def shard_rows(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     return F.pad(rows, widths)
 
 
+def reset_collective_counts() -> None:
+    """Set every collective's count to 0 (module note)."""
+    _collectives.clear()
+    _collectives.update({op: {"calls": 0, "elements": 0, "bytes": 0, "shapes": {}}
+                         for op in COLLECTIVES})
+
+
+def collective_counts() -> dict:
+    """A copy of the counts since the last reset (module note)."""
+    return {op: {**c, "shapes": dict(c["shapes"])} for op, c in _collectives.items()}
+
+
+def count_collective(op: str, dtype: torch.dtype, shape) -> None:
+    """One call of collective `op` whose output (all_gather) or buffer
+    (all_reduce) has `dtype` and `shape`."""
+    c = _collectives[op]
+    numel = math.prod(shape)
+    c["calls"] += 1
+    c["elements"] += numel
+    c["bytes"] += numel * dtype.itemsize
+    key = f"{str(dtype).removeprefix('torch.')}[{','.join(map(str, shape))}]"
+    c["shapes"][key] = c["shapes"].get(key, 0) + 1
+
+
+reset_collective_counts()
+
+
 def gather_rows(x: torch.Tensor, mesh: Mesh, n: int, dim: int = 0) -> torch.Tensor:
     """All ranks' rows of axis `dim` in rank order, cut to the first `n`
     (the inverse of shard_rows): one all-gather."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x, group=mesh.group)
+    full = list(x.shape)
+    full[dim] *= mesh.size
+    count_collective("all_gather", x.dtype, full)
     return torch.cat(parts, dim=dim).narrow(dim, 0, n)

@@ -148,6 +148,20 @@ Phases, each of which fails the run when it fails:
    the kv= route under the mesh), every other counter 0, and the
    breakdown's 4 K1 launches and I UpdateFormer calls per forward. Prints
    each script's seconds and reading, and the phase's seconds.
+13. the port's last two measurement scripts as subprocesses:
+   bench_scaling_torch.py at every device count the machine has (1 on one
+   card: the SLAM loop and the tracker forward under get_mesh(n), the
+   collectives of one sharded attention call and one patch-sharded backend
+   update counted at the port's own all_gather and all_reduce, the cost
+   model) and scripts/torch_corr_vol_ab.py (K1 against the einsum volumes
+   of the matmul-first design). Each must exit 0 with its lines parsed
+   (five sections, one A/B line) and its numbers finite and positive; the
+   counted collective elements equal to their models exactly; K1's
+   launches in the A/B equal to its warm-ups and repetitions, its output
+   within 1e-4 of its plain version; the tracker's K2 kv= launches per
+   forward equal to the count from the code, K1 4 and K2 0 per append in
+   the SLAM loop (its tracks stay under K2's threshold); every off-path
+   counter 0. Prints each reading and the phase's seconds.
 
 Phase 4 also prints the tracker forward's TFLOP (utils/flops.py) and
 TFLOP/s at its synchronised ms per append.
@@ -201,8 +215,8 @@ path's launches to K1's and K2's entries, K1's check and timing at that
 path's shape under "keyframe_path" and K2's masked ones under "masked";
 phase 10 its launches and first-append checks under "davis_jpeg_path",
 phase 11 its launches, first-append checks and times at 1536 tracks under
-"sintel_path"; phase 12 runs in subprocesses, whose launches stay out of
-it), the card's name and power limit
+"sintel_path"; phases 12 and 13 run in subprocesses, whose launches stay
+out of it), the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result. The sha256 it prints first covers this script, the scripts its
@@ -279,7 +293,7 @@ TOL = {"k1": 1e-4, "k2_f32": 1e-4,
 
 
 def source_digest() -> str:
-    """sha256 over this script, the scripts phases 2, 11 and 12 run
+    """sha256 over this script, the scripts phases 2, 11, 12 and 13 run
     (scripts/torch_corr_ab.py, scripts/torch_validate_checkpoint.py,
     scripts/torch_*/*.sh, MEASUREMENT_SCRIPTS) and every .py/.cu file of
     batrack_tpu_torch/."""
@@ -296,9 +310,10 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
-# phase 12: the port's measurement entry points, run as a user runs them
+# phases 12 and 13: the port's measurement entry points, run as a user runs them
 MEASUREMENT_SCRIPTS = ("bench_torch.py", "scripts/torch_tracker_breakdown.py",
-                       "bench_refine_torch.py", "bench_depth_torch.py")
+                       "bench_refine_torch.py", "bench_depth_torch.py",
+                       "bench_scaling_torch.py", "scripts/torch_corr_vol_ab.py")
 
 
 def log(*a):
@@ -3206,6 +3221,123 @@ def phase_measurements(cfg):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+def scaling_k2_per_forward(shapes):
+    """K2 kv= launches per forward of bench_scaling_torch.py's tracker, from
+    the code: one window (T = S), each of the `iters` iterations runs the
+    main UpdateFormer's space blocks and each static iteration the dynamic
+    one's, all through the mesh's kv= route once the tracks reach K2's
+    threshold."""
+    from batrack_tpu_torch.tracker.mdtracker import TrackerParams
+
+    p = TrackerParams()
+    if shapes["N"] < p.kernel_threshold:
+        return 0
+    return shapes["iters"] * p.space_depth + shapes["static_iters"] * p.space_depth_dyn
+
+
+def check_off_path(what, launches):
+    """Every off-path counter (K3, K4, K1's options) in `launches` reads 0."""
+    check(f"{what}: off-path launches (K3, K4, K1's options)",
+          sum(launches[k] for k in OFF_PATH), 0)
+
+
+def phase_scaling(cfg):
+    """Phase 13: bench_scaling_torch.py and scripts/torch_corr_vol_ab.py as
+    subprocesses (module note)."""
+    t_phase = time.perf_counter()
+    _, k1_per, _ = launches_per_append(cfg)
+    wall, lines, _ = run_measurement(["bench_scaling_torch.py"])
+    by = {r["metric"]: r for r in lines}
+    names = ("slam_scaling_real_tracker", "tracker_scaling", "collective_bytes",
+             "ba_allreduce_bytes", "collective_cost_model")
+    if len(lines) != 5 or set(by) != set(names):
+        raise AssertionError(f"bench_scaling_torch printed {[r.get('metric') for r in lines]}")
+    slam, tr, cb, ba, cm = (by[k] for k in names)
+    counts = sorted(slam["fps"], key=int)
+    log(f"[bench_scaling_torch] {wall:.1f} s at counts {counts} on {slam['device']['smi']}")
+    log(f"  slam: frames/s {json.dumps(slam['fps'])}, overhead {json.dumps(slam['overhead'])}")
+    log(f"  tracker: s per forward {json.dumps(tr['sec_per_forward'])}, per rep "
+        f"{json.dumps(tr['sec_per_rep'])}, overhead {json.dumps(tr['overhead'])}")
+    require_positive("slam fps", slam["fps"])
+    require_positive("tracker s per forward", tr["sec_per_forward"])
+    require_positive("tracker s per rep", {f"{n}.{i}": t for n, reps in tr["sec_per_rep"].items()
+                                           for i, t in enumerate(reps)})
+    if "1" not in counts or set(tr["sec_per_forward"]) != set(counts):
+        raise AssertionError(f"counts: slam {counts}, tracker {sorted(tr['sec_per_forward'])}")
+    k2_fwd = scaling_k2_per_forward(tr["shapes"])
+    tracks = slam["shapes"]["tracks_per_append"]
+    for n in counts:
+        lp, lf = slam["launches_per_append"][n], tr["launches_per_forward"][n]
+        check(f"scaling slam at {n}: K1 launches per append against the code's {k1_per}",
+              abs(lp["corr_sample"] - k1_per), 0)
+        check(f"scaling slam at {n}: K2 launches per append against 0 ({tracks} tracks < 1024)",
+              lp["fused_qkv_attention"], 0)
+        check(f"scaling tracker at {n}: K2 kv= launches per forward against the code's {k2_fwd}",
+              abs(lf["fused_qkv_attention_kv"] - k2_fwd), 0)
+        check(f"scaling tracker at {n}: K2 launches all kv=",
+              abs(lf["fused_qkv_attention"] - lf["fused_qkv_attention_kv"]), 0)
+        for what, launches in (("slam", lp), ("tracker", lf),
+                               ("collective_bytes", cb["per_mesh"][n]["launches"])):
+            check_off_path(f"scaling {what} at {n}", launches)
+        g, b = cb["per_mesh"][n], ba["per_mesh"][n]
+        log(f"  collective_bytes at {n}: {g['counted_allgather_output_elements']} all-gather "
+            f"elements ({json.dumps(g['counted_shapes'])}) against the model "
+            f"{g['model_full_gather_elements']} + mask {g['model_mask_elements']}; "
+            f"all_gather {g['allgather_ms']:.4f} ms back to back, {g['allgather_device_ms']:.4f} "
+            f"on the device; gather_rows {g['gather_rows_ms']:.4f} / "
+            f"{g['gather_rows_device_ms']:.4f} ms; received {g['receive_gbytes_per_s']} / "
+            f"{g['receive_gbytes_per_s_device']} GB/s")
+        check(f"collective_bytes at {n}: counted all-gather elements against the model",
+              abs(g["counted_allgather_output_elements"]
+                  - g["model_full_gather_elements"] - g["model_mask_elements"]), 0)
+        check(f"collective_bytes at {n}: counted mask elements against the model",
+              abs(g["counted_mask_elements"] - g["model_mask_elements"]), 0)
+        check(f"collective_bytes at {n}: one K2 kv= launch", abs(g["k2_kv_launches"] - 1), 0)
+        require_positive(f"collective_bytes at {n}", {k: g[k] for k in (
+            "allgather_ms", "gather_rows_ms", "allgather_device_ms", "gather_rows_device_ms",
+            "counted_allgather_output_elements")})
+        log(f"  ba_allreduce_bytes at {n}: {b['counted_allreduce_elements']} all-reduce "
+            f"elements in {b['counted_allreduce_calls']} calls against the model "
+            f"{b['model_elements']}; all-gathers {json.dumps(b['allgathers'])}")
+        check(f"ba_allreduce_bytes at {n}: counted all-reduce elements against the model",
+              abs(b["counted_allreduce_elements"] - b["model_elements"]), 0)
+    check_off_path("scaling space block", cm["assumptions"]["space_block_launches"])
+    require_positive("cost model", {"block_ms": cm["assumptions"]["measured_block_ms_1card"],
+                                    **{f"efficiency {n}": p["tracker_efficiency_unoverlapped"]
+                                       for n, p in cm["projection"].items()}})
+    log(f"  cost model: block {cm['assumptions']['measured_block_ms_1card']:.4f} ms; "
+        + "; ".join(f"{n}: {p['rate_source']} {p['gather_gbytes_per_s']:.1f} GB/s, "
+                    f"efficiency {p['tracker_efficiency_unoverlapped']:.3f}"
+                    for n, p in cm["projection"].items()))
+    out = {"bench_scaling": {"seconds": wall, "fps": slam["fps"],
+                             "sec_per_forward": tr["sec_per_forward"],
+                             "collective_bytes": cb["per_mesh"],
+                             "ba_allreduce_bytes": ba["per_mesh"],
+                             "cost_model": cm["projection"],
+                             "block_ms": cm["assumptions"]["measured_block_ms_1card"]}}
+
+    wall, (res,), stdout = run_measurement(["scripts/torch_corr_vol_ab.py"])
+    log(f"[torch_corr_vol_ab] {wall:.1f} s")
+    log("\n".join(ln for ln in stdout.splitlines() if not ln.startswith("{")))
+    check("corr_vol_ab: K1 vs plain", res["k1_max_abs_err"], TOL["k1"])
+    check(f"corr_vol_ab: K1 launches against {res['warmup']} warm-ups + {res['reps']} reps",
+          abs(res["k1_launches"] - res["warmup"] - res["reps"]), 0)
+    check_off_path("corr_vol_ab", res["launches"])
+    require_positive("corr_vol_ab", {k: res[k] for k in (
+        "k1_ms", "k1_pack_ms", "k1_bound_ms", "volumes_ms", "volumes_write_bound_ms")})
+    log(f"  K1 {res['k1_ms']:.4f} ms (bound {res['k1_bound_ms']:.4f}), pack "
+        f"{res['k1_pack_ms']:.4f}; volumes {res['volumes_ms']:.4f} ms for "
+        f"{res['volumes_mb_written']:.1f} MB (write bound {res['volumes_write_bound_ms']:.4f}), "
+        f"{res['volumes_over_k1']:.2f}x K1")
+    out["corr_vol_ab"] = {"seconds": wall, **{k: res[k] for k in (
+        "k1_ms", "k1_pack_ms", "k1_launches", "k1_max_abs_err", "k1_bound_ms", "volumes_ms",
+        "volumes_mb_written", "volumes_write_bound_ms", "volumes_over_k1")}}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def main_ranks() -> int:
     """chip_smoke.py --ranks under torchrun: phase_ranks on every rank."""
     import torch.distributed as dist
@@ -3323,7 +3455,9 @@ def main() -> int:
     log(f"[journeys] {json.dumps(journeys)}")
     measurements = phase_measurements(cfg)
     log(f"[measurements] {json.dumps(measurements)}")
-    log(f"[time] phases 2-12: {time.perf_counter() - t_phases:.1f} s after the build")
+    scaling = phase_scaling(cfg)
+    log(f"[scaling] {json.dumps(scaling)}")
+    log(f"[time] phases 2-13: {time.perf_counter() - t_phases:.1f} s after the build")
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]

@@ -18,7 +18,9 @@ JAX package.
   makes, with the static branch off (I and I) and on (the JAX script's
   count).
 - bench_depth_torch's network input shapes are the JAX package's.
-- Each script runs on CUDA unless told otherwise, and raises without it.
+- Each script runs on CUDA unless told otherwise, and raises without it
+  (bench_scaling_torch.py and scripts/torch_corr_vol_ab.py too; their CPU
+  runs are in test_torch_scaling.py).
 """
 
 import importlib.util
@@ -60,6 +62,8 @@ bench_torch = _load("bench_torch.py")
 bench_refine_torch = _load("bench_refine_torch.py")
 bench_depth_torch = _load("bench_depth_torch.py")
 breakdown = _load("scripts/torch_tracker_breakdown.py")
+bench_scaling_torch = _load("bench_scaling_torch.py")
+corr_vol_ab = _load("scripts/torch_corr_vol_ab.py")
 bench_refine = _load("bench_refine.py")  # the JAX script: numpy at import
 
 
@@ -186,8 +190,10 @@ def test_depth_input_shapes_match_jax(small):
 
 @pytest.mark.parametrize("main", [
     lambda: bench_torch.main([]), lambda: breakdown.main([]),
-    lambda: bench_refine_torch.main(["--small"]), lambda: bench_depth_torch.main(["--small"])],
-    ids=["bench_torch", "tracker_breakdown", "bench_refine_torch", "bench_depth_torch"])
+    lambda: bench_refine_torch.main(["--small"]), lambda: bench_depth_torch.main(["--small"]),
+    lambda: bench_scaling_torch.main([]), lambda: corr_vol_ab.main([])],
+    ids=["bench_torch", "tracker_breakdown", "bench_refine_torch", "bench_depth_torch",
+         "bench_scaling_torch", "torch_corr_vol_ab"])
 def test_scripts_default_to_cuda_and_raise_without_it(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -82,8 +82,9 @@ def test_sources_name_no_jax_flax_or_batrack_tpu():
              + sorted(root.glob("bench*_torch.py")))
     assert root / "scripts" / "torch_corr_ab.py" in files
     assert {root / f for f in ("bench_torch.py", "bench_refine_torch.py",
-                               "bench_depth_torch.py",
-                               "scripts/torch_tracker_breakdown.py")} <= set(files)
+                               "bench_depth_torch.py", "bench_scaling_torch.py",
+                               "scripts/torch_tracker_breakdown.py",
+                               "scripts/torch_corr_vol_ab.py")} <= set(files)
     offenders = [f"{f.relative_to(root)}:{i}: {line.strip()}"
                  for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
