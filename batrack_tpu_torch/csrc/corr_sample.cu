@@ -55,8 +55,9 @@
 // all start on bank 0. With it, the 16-byte chunk c of row r sits at chunk
 // c ^ (r & 7), and 8 consecutive taps of a window row fall on 8 banks
 // groups. Out-of-map taps of a resident level point ldmatrix at a zero row.
-// The kernel takes radius 3 (8x8 windows, the tracker's corr_radius) and
-// C = 128; each block has one producer and six consumer warps.
+// Each block has one producer and six consumer warps. The numbers above are
+// radius 3 (8x8 windows, the tracker's corr_radius) and C = 128; the widths
+// are compile-time constants (below the options).
 //
 // The TPU kernel's two options are two more instantiations of this kernel,
 // each with its own entry point and launch counter, on the same pipeline:
@@ -91,8 +92,26 @@
 //     adds about 700 instructions to a window's 1100 or so, and a window's
 //     work is bound by instruction throughput once its bytes are halved, so
 //     int8 maps are slower here than bf16 ones (PERF.md).
-// Every instantiation takes radius 3 only: another radius would need the
-// window side as a template parameter and ring slots sized to fit it.
+//
+// Widths. The radius r and the channel count C are compile-time constants,
+// BT_CORR_RADIUS and BT_CORR_C (defaults 3 and 128, the tracker's: the JAX
+// tracker pins corr_radius 3 and latent_dim 128), and ops/cuda_build.py
+// builds one library per (r, C) that a caller asks for: r 1 to 4 and C 64,
+// 128 or 256, the widths the Pallas function takes as arguments. Every size
+// follows them: the window side 2r + 2 and its (2r + 2)^2 taps, padded to
+// whole 16-row tiles (16, 48, 64 and 112 rows for r 1-4; a padding row
+// gives a tap that no output reads); the (2r + 1)^2 outputs; the 128-byte
+// sections of a tap, 2C/128 for bf16 and C/128 (at least one) for int8;
+// the k-steps of the product, C/16. A window's box keeps its place in a
+// slot padded to whole tiles, so every box starts 1024-aligned for the
+// swizzle. The ring keeps 12 slots where they fit in a block's shared
+// memory, else one slot per consumer warp, and for the widest windows
+// (bf16, r 4, C 256: 56 KB) three consumer warps of one slot each. int8
+// maps at C = 64 fill half a 128-byte row: their boxes stay 128 channels
+// wide and TMA's out-of-bounds fill gives zeros in channels 64-127, which
+// the product never loads. Two blocks share an SM (the launch bound) only
+// where the int8 ring leaves room for them. The numbers above the options
+// are those of r 3 and C 128.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_runtime.h>
@@ -102,32 +121,63 @@
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kC = 128;  // channels, the tracker's latent width
+#ifndef BT_CORR_RADIUS
+#define BT_CORR_RADIUS 3  // the tracker's corr_radius
+#endif
+#ifndef BT_CORR_C
+#define BT_CORR_C 128  // channels, the tracker's latent width
+#endif
 
-constexpr int kRadius = 3;                 // the tracker's corr_radius
-constexpr int kD = 2 * kRadius + 2;        // 8 integer taps a side
-constexpr int kTaps = kD * kD;             // 64: four 16-row tiles
-constexpr int kOut = (kD - 1) * (kD - 1);  // 49 outputs per window
-// A row of the 128-byte swizzle: a tap's 64-channel half in bf16, a whole
-// tap in int8. A window's box of rows is 8 KB; bf16 windows take two.
+constexpr int kMaxLevels = 8;
+constexpr int kC = BT_CORR_C;
+constexpr int kRadius = BT_CORR_RADIUS;
+static_assert(kRadius >= 1 && kRadius <= 4, "radius: 1 to 4");
+static_assert(kC == 64 || kC == 128 || kC == 256, "channels: 64, 128 or 256");
+
+constexpr int kD = 2 * kRadius + 2;        // 8 integer taps a side at r 3
+constexpr int kTaps = kD * kD;             // 64 at r 3: four 16-row tiles
+constexpr int kTiles = (kTaps + 15) / 16;  // 16-row tiles of a window's taps
+constexpr int kTapRows = 16 * kTiles;      // the taps padded to whole tiles
+constexpr int kOut = (kD - 1) * (kD - 1);  // 49 outputs per window at r 3
+constexpr int kSteps = kC / 16;            // 16-channel k-steps of a window's product
+// A row of the 128-byte swizzle: a tap's 64-channel part in bf16, its 128
+// channels in int8. A window's box of rows is 8 KB at r 3 (kBoxBytes, what
+// TMA writes), in a slot's place of whole tiles (kBoxStride); bf16
+// windows at C = 128 take two boxes.
 constexpr int kRowBytes = 128;
 constexpr int kBoxBytes = kTaps * kRowBytes;
-constexpr int kConsumerWarps = 6;
-constexpr int kSlotsPerWarp = 2;
-constexpr int kSlots = kConsumerWarps * kSlotsPerWarp;
-constexpr int kThreads = 32 * (kConsumerWarps + 1);
+constexpr int kBoxStride = kTapRows * kRowBytes;
 constexpr int kSmemLimit = 232448;  // a block's most dynamic shared memory
+constexpr int kSmemPerSm = 233472;  // an SM's, shared by its blocks (1 KB each reserved)
+constexpr int kMaxSlots = 12;       // ring slots: two per consumer warp where they fit
 // beside the map or ring: the consumers' taps, the zero row, the barriers
-// and the slack that aligns the base to 1024 bytes (ops/corr_kernel.py
-// reserves the same)
-constexpr int kExtraBytes = 3072;
-static_assert(1024 + kConsumerWarps * kTaps * 4 + 128 + (2 * kSlots + 1) * 8 <= kExtraBytes,
-              "shared-memory reserve");
+// and the slack that aligns the base to 1024 bytes, rounded up to 1 KB
+// (corr_extra_bytes() gives it to the wrapper's residency choice): 3072 at r 3
+constexpr int kExtraBytes =
+    (1024 + 6 * kTapRows * 4 + kRowBytes + (2 * kMaxSlots + 1) * 8 + 1023) / 1024 * 1024;
 
-// Sections of 128-byte rows per tap: bf16 taps are two of 64 channels, int8
-// taps one of 128.
-__host__ __device__ constexpr int sections(bool int8) { return int8 ? 1 : 2; }
+// Sections of 128-byte rows per tap: bf16 taps are C/64 of 64 channels,
+// int8 taps C/128 of 128 (one at C = 64, half of it zero fill).
+__host__ __device__ constexpr int sections(bool int8) {
+  return int8 ? (kC + 127) / 128 : kC / 64;
+}
+
+// A block of either map type: its consumer warps and ring (see Widths).
+template <bool kInt8>
+struct Layout {
+  static constexpr int kWindowBytes = sections(kInt8) * kBoxStride;  // one ring slot
+  static constexpr int kWarps = 6 * kWindowBytes + kExtraBytes <= kSmemLimit ? 6 : 3;
+  static constexpr int kSlotsPerWarp =
+      kMaxSlots * kWindowBytes + kExtraBytes <= kSmemLimit ? kMaxSlots / kWarps : 1;
+  static constexpr int kSlots = kWarps * kSlotsPerWarp;
+  static constexpr int kRing = kSlots * kWindowBytes;
+  static constexpr int kThreads = 32 * (kWarps + 1);
+  static constexpr int kMinBlocks =
+      kInt8 && 2 * (kRing + kExtraBytes + 1024) <= kSmemPerSm ? 2 : 1;
+  static_assert(kRing + kExtraBytes <= kSmemLimit, "the ring does not fit");
+  static_assert(1024 + kWarps * kTapRows * 4 + kRowBytes + (2 * kSlots + 1) * 8 <= kExtraBytes,
+                "shared-memory reserve");
+};
 
 // A level's map of one frame in shared memory, per section: H*W rows of 128
 // bytes, each section starting 1024-aligned.
@@ -160,7 +210,7 @@ struct alignas(64) CorrArgs {
   const float* targets;     // (N, S, C)
   const float* coords;      // (S, N, 2)
   const float* scales;      // int8 maps: (L,) dequantisation scales; else null
-  float* out;               // (N, S, L * 49)
+  float* out;               // (N, S, L * kOut)
   int N, res_chunk, stream_chunk;
   float inv_sqrt_c;
 };
@@ -274,7 +324,7 @@ __device__ __forceinline__ uint32_t split_term(float2 v, int g) {
 // zeros. bf16 maps: channels 16ks + 2tig..+1 and 16ks + 8 + 2tig..+1; int8
 // maps: the permutation of the header note.
 struct TargetPart {
-  float2 v[8][2];
+  float2 v[kSteps][2];
 };
 
 template <int kTerms, bool kInt8>
@@ -282,7 +332,7 @@ __device__ __forceinline__ TargetPart load_target(const float* __restrict__ targ
   const int g = lane >> 2, tig = lane & 3;
   TargetPart t;
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < kSteps; ++ks) {
     const int c0 = kInt8 ? 32 * (ks >> 1) + 4 * tig + 2 * (ks & 1) : 16 * ks + 2 * tig;
     const int c1 = kInt8 ? c0 + 16 : c0 + 8;
     t.v[ks][0] = t.v[ks][1] = make_float2(0.f, 0.f);
@@ -294,21 +344,22 @@ __device__ __forceinline__ TargetPart load_target(const float* __restrict__ targ
   return t;
 }
 
-// The A fragments of k-step ks for the four row tiles: ldmatrix.x4, lane L
+// The A fragments of k-step ks for the kTiles row tiles: ldmatrix.x4, lane L
 // giving the address of row L % 8 of matrix L / 8 (rows 0-7 | 8-15 of the
 // tile, then 16-byte chunk 2(ks % 4) | 2(ks % 4) + 1 of the row), which
 // yields the fragment in order. Row r of tile m is tap 16m + r. bf16 maps:
-// k-step ks reads channels 16ks..16ks+15, half ks / 4. int8 maps: called
-// with ks = p < 4, it reads the chunks of k-steps 2p and 2p + 1. base[m],
+// k-step ks reads channels 16ks..16ks+15, section ks / 4. int8 maps: called
+// with ks = p < kSteps / 2, it reads the chunks of k-steps 2p and 2p + 1,
+// section p / 4. base[m],
 // sw[m] and hs[m] are this lane's row address in tile m, its swizzle
 // (row & 7) and the distance to the row's second half (bf16; 0 for the
 // zero row).
-__device__ __forceinline__ void load_kstep(uint32_t (&a)[4][4], const uint32_t (&base)[4],
-                                           const int (&sw)[4], const uint32_t (&hs)[4], int ks,
-                                           int lane) {
+__device__ __forceinline__ void load_kstep(uint32_t (&a)[kTiles][4],
+                                           const uint32_t (&base)[kTiles], const int (&sw)[kTiles],
+                                           const uint32_t (&hs)[kTiles], int ks, int lane) {
   const int chunk = 2 * (ks & 3) + (lane >> 4);
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < kTiles; ++m)
     ldmatrix_x4(a[m], base[m] + (ks >> 2) * hs[m] + ((chunk ^ sw[m]) << 4));
 }
 
@@ -325,9 +376,9 @@ __device__ __forceinline__ void s8x4_bf16(uint32_t w, uint32_t& lo, uint32_t& hi
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
-// The 64 taps of one window, each the dot product of its 128 channels with
-// the target's kTerms bf16 terms, into taps[a * 8 + b] (y offset a, x
-// offset b). mma.sync.m16n8k16 fragments (g = lane / 4, tig = lane % 4): B
+// The kTaps taps of one window, each the dot product of its C channels with
+// the target's kTerms bf16 terms, into taps[a * kD + b] (y offset a, x
+// offset b; the padding rows past kTaps get values no output reads). mma.sync.m16n8k16 fragments (g = lane / 4, tig = lane % 4): B
 // registers {k 2tig..+1, col g}, {k 2tig+8..+9, col g}; D {row g, cols 2tig,
 // 2tig+1}, {row g+8, same cols}; lanes g < kTerms hold term g of the
 // target. The four row tiles accumulate side by side, k-step by k-step, with
@@ -335,27 +386,27 @@ __device__ __forceinline__ void s8x4_bf16(uint32_t w, uint32_t& lo, uint32_t& hi
 // independent chains of eight products instead of one of 32. int8 maps load
 // two k-steps' fragments at a time and convert them (s8x4_bf16).
 template <bool kInt8>
-__device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[4],
-                                            const int (&sw)[4], const uint32_t (&hs)[4],
+__device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[kTiles],
+                                            const int (&sw)[kTiles], const uint32_t (&hs)[kTiles],
                                             const TargetPart& t, int lane) {
   const int g = lane >> 2, tig = lane & 3;
-  uint32_t b[8][2];
+  uint32_t b[kSteps][2];
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < kSteps; ++ks) {
     b[ks][0] = split_term(t.v[ks][0], g);
     b[ks][1] = split_term(t.v[ks][1], g);
   }
-  float c[4][4];
+  float c[kTiles][4];
 #pragma unroll
-  for (int m = 0; m < 4; ++m) c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0.f;
-  constexpr int kLoads = kInt8 ? 4 : 8;
-  uint32_t a[2][4][4];
+  for (int m = 0; m < kTiles; ++m) c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0.f;
+  constexpr int kLoads = kInt8 ? kSteps / 2 : kSteps;
+  uint32_t a[2][kTiles][4];
   load_kstep(a[0], base, sw, hs, 0, lane);
 #pragma unroll
   for (int ks = 0; ks < kLoads; ++ks) {
     if (ks + 1 < kLoads) load_kstep(a[(ks + 1) & 1], base, sw, hs, ks + 1, lane);
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
+    for (int m = 0; m < kTiles; ++m) {
       const uint32_t(&f)[4] = a[ks & 1][m];
       if constexpr (kInt8) {
         uint32_t lo[4], hi[4];
@@ -369,7 +420,7 @@ __device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[
     }
   }
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < kTiles; ++m) {
     // columns 0 and 1 are on lane tig = 0, column 2 on the lane after it
     float v0 = c[m][0] + c[m][1], v1 = c[m][2] + c[m][3];
     v0 += __shfl_down_sync(0xffffffffu, v0, 1);
@@ -381,8 +432,8 @@ __device__ __forceinline__ void window_taps(float* taps, const uint32_t (&base)[
   }
 }
 
-// The 2x2 blend of a window's 8 x 8 taps (shared memory) into its 7 x 7
-// outputs, scaled, in the transposed flatten.
+// The 2x2 blend of a window's kD x kD taps (shared memory) into its
+// (kD - 1)^2 outputs, scaled, in the transposed flatten.
 __device__ __forceinline__ void blend_store(const float* taps, float dx, float dy, float scale,
                                             float* o, int lane) {
   const float w00 = (1.f - dy) * (1.f - dx), w01 = (1.f - dy) * dx;
@@ -396,24 +447,29 @@ __device__ __forceinline__ void blend_store(const float* taps, float dx, float d
   }
 }
 
-// One block: warps 0-5 consume windows, warp 6 is the producer (its lane 0
-// issues every TMA copy). A resident block loads its frame's map once and
-// its consumers take the tracks of its chunk in turn; a streamed block's
-// producer walks its chunk of windows in order, window j into slot
-// (j % 6) * 2 + (j / 6) % 2, so each slot is always read by the same
-// consumer warp, in order. kTerms: bf16 terms of the target (3, or 1 for
-// the mxu option); kInt8: int8 maps (two blocks fit on an SM).
+// One block: warps 0-5 consume windows (0-2 in the widest layout), the
+// warp after them is the producer (its lane 0 issues every TMA copy). A
+// resident block loads its frame's map once and its consumers take the
+// tracks of its chunk in turn; a streamed block's producer walks its chunk
+// of windows in order, window j into slot (j % 6) * 2 + (j / 6) % 2 (in
+// general (j % warps) * slots per warp + (j / warps) % slots per warp), so
+// each slot is always read by the same consumer warp, in order. kTerms:
+// bf16 terms of the target (3, or 1 for the mxu option); kInt8: int8 maps
+// (two blocks fit on an SM at the tracker's widths).
 template <int kTerms, bool kInt8>
-__global__ void __launch_bounds__(kThreads, kInt8 ? 2 : 1)
+__global__ void __launch_bounds__(Layout<kInt8>::kThreads, Layout<kInt8>::kMinBlocks)
     corr_sample_kernel(const __grid_constant__ CorrArgs a) {
+  using L = Layout<kInt8>;
   constexpr int kSections = sections(kInt8);
-  constexpr int kWindowBytes = kSections * kBoxBytes;
+  constexpr int kLanes = kInt8 ? kRowBytes : kRowBytes / 2;  // channels of a section
+  constexpr int kConsumerWarps = L::kWarps, kSlotsPerWarp = L::kSlotsPerWarp;
+  constexpr int kSlots = L::kSlots, kWindowBytes = L::kWindowBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const CorrPlan& p = a.plan;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* taps = reinterpret_cast<float*>(smem + p.region) + warp * kTaps;
-  uint8_t* zero = smem + p.region + kConsumerWarps * kTaps * 4;  // one 128-byte zero row
+  float* taps = reinterpret_cast<float*>(smem + p.region) + warp * kTapRows;
+  uint8_t* zero = smem + p.region + kConsumerWarps * kTapRows * 4;  // one 128-byte zero row
   uint64_t* full = reinterpret_cast<uint64_t*>(zero + kRowBytes);
   uint64_t* empty = full + kSlots;
   uint64_t* map_full = empty + kSlots;
@@ -446,7 +502,7 @@ __global__ void __launch_bounds__(kThreads, kInt8 ? 2 : 1)
       if (lane == 0) {
         mbar_arrive_expect_tx(map_full, kSections * H * W * kRowBytes);
         for (int k = 0; k < kSections; ++k)
-          tma_load_4d(smem + k * section, &p.map[l], map_full, 64 * k, 0, 0, s);
+          tma_load_4d(smem + k * section, &p.map[l], map_full, kLanes * k, 0, 0, s);
       }
       return;
     }
@@ -459,16 +515,19 @@ __global__ void __launch_bounds__(kThreads, kInt8 ? 2 : 1)
     TargetPart t = load_target<kTerms, kInt8>(tgt + (long long)n * S * kC, lane);
     mbar_wait(map_full, 0);
     const uint32_t map = smem_u32(smem), zrow = smem_u32(zero);
+    const int rowsel = (lane & 7) + 8 * ((lane >> 3) & 1);  // this lane's row of a tile
     for (; n < n1; n += kConsumerWarps) {
       const int nn = min(n + kConsumerWarps, n1 - 1);
       const Win wn = window_at(a.coords, N, s, nn, l);
       const TargetPart tn = load_target<kTerms, kInt8>(tgt + (long long)nn * S * kC, lane);
-      uint32_t base[4], hs[4];
-      int sw[4];
+      uint32_t base[kTiles], hs[kTiles];
+      int sw[kTiles];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int yy = w.y0 + 2 * m + ((lane >> 3) & 1), xx = w.x0 + (lane & 7);
-        const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      for (int m = 0; m < kTiles; ++m) {
+        const int tap = 16 * m + rowsel;  // (y, x) = (tap / kD, tap % kD) of the window
+        const int yy = w.y0 + tap / kD, xx = w.x0 + tap % kD;
+        const bool in = (kTaps == kTapRows || tap < kTaps) && yy >= 0 && yy < H && xx >= 0 &&
+                        xx < W;
         const int row = in ? yy * W + xx : 0;
         base[m] = in ? map + row * kRowBytes : zrow;
         sw[m] = row & 7;
@@ -508,21 +567,21 @@ __global__ void __launch_bounds__(kThreads, kInt8 ? 2 : 1)
         if (r >= kSlotsPerWarp) mbar_wait(&empty[slot], (r / kSlotsPerWarp - 1) & 1);
         if (lane == 0) {
           uint8_t* dst = smem + slot * kWindowBytes;
-          mbar_arrive_expect_tx(&full[slot], kWindowBytes);
+          mbar_arrive_expect_tx(&full[slot], kSections * kBoxBytes);
           for (int q = 0; q < kSections; ++q)
-            tma_load_4d(dst + q * kBoxBytes, &p.map[l], &full[slot], 64 * q, xk, yk, sk);
+            tma_load_4d(dst + q * kBoxStride, &p.map[l], &full[slot], kLanes * q, xk, yk, sk);
         }
       }
     }
     return;
   }
   const int rowsel = (lane & 7) + 8 * ((lane >> 3) & 1);  // this lane's row of a tile
-  uint32_t hs[4];
-  int sw[4];
+  uint32_t hs[kTiles];
+  int sw[kTiles];
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < kTiles; ++m) {
     sw[m] = lane & 7;
-    hs[m] = kBoxBytes;
+    hs[m] = kBoxStride;
   }
   int j = warp;
   if (j >= cnt) return;
@@ -539,9 +598,9 @@ __global__ void __launch_bounds__(kThreads, kInt8 ? 2 : 1)
     const TargetPart tn =
         load_target<kTerms, kInt8>(a.targets + ((long long)nn * S + sn) * kC, lane);
     const int slot = warp * kSlotsPerWarp + r % kSlotsPerWarp;
-    uint32_t base[4];
+    uint32_t base[kTiles];
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int m = 0; m < kTiles; ++m)
       base[m] = smem_u32(smem + slot * kWindowBytes) + (16 * m + rowsel) * kRowBytes;
     mbar_wait(&full[slot], (r / kSlotsPerWarp) & 1);
     window_taps<kInt8>(taps, base, sw, hs, t, lane);
@@ -629,7 +688,8 @@ int launch(const void* plan, const void* targets, const void* coords, const void
   a.res_chunk = res_chunk;
   a.stream_chunk = stream_chunk;
   a.inv_sqrt_c = 1.0f / sqrtf((float)kC);
-  corr_sample_kernel<kTerms, kInt8><<<(unsigned)blocks, kThreads, p.region + kExtraBytes,
+  corr_sample_kernel<kTerms, kInt8><<<(unsigned)blocks, Layout<kInt8>::kThreads,
+                                      p.region + kExtraBytes,
                                       static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
@@ -639,13 +699,17 @@ int launch(const void* plan, const void* targets, const void* coords, const void
 // Size in bytes of the host buffer corr_sample_plan fills.
 extern "C" int corr_plan_bytes() { return (int)sizeof(CorrPlan); }
 
+// Shared memory the kernel keeps beside a resident map or the ring
+// (kExtraBytes): a level is resident only if its map fits beside it.
+extern "C" int corr_extra_bytes() { return kExtraBytes; }
+
 // Encode the tensor maps of a packed pyramid into `plan` (a host buffer of
 // corr_plan_bytes()), once per pyramid: pyr holds the levels concatenated,
 // bf16 (int8 = 0) or int8 (int8 = 1), level l (S, H_l, W_l, C)
 // channels-last at element offset level_off[l]; resident[l] != 0 keeps
 // level l's map of a frame in shared memory (the wrapper decides; its map
-// must fit beside kExtraBytes and measure at most 256 x 256). Returns a
-// cudaError_t.
+// must fit beside kExtraBytes and measure at most 256 x 256). C must be the
+// build's BT_CORR_C. Returns a cudaError_t.
 extern "C" int corr_sample_plan(void* plan, const void* pyr, int S, int C, int L,
                                 const long long* level_off, const int* level_h,
                                 const int* level_w, const int* resident, int int8) {
@@ -673,7 +737,7 @@ extern "C" int corr_sample_plan(void* plan, const void* pyr, int S, int C, int L
                                    (cuuint64_t)kC * elem * w * h};
     // a box row is 128 bytes: 64 bf16 channels or 128 int8 ones
     cuuint32_t box[4] = {(cuuint32_t)(kRowBytes / elem), (cuuint32_t)kD, (cuuint32_t)kD, 1};
-    int need = kSlots * nsec * kBoxBytes;  // the ring
+    int need = int8 ? Layout<true>::kRing : Layout<false>::kRing;  // the ring
     if (p.resident[l]) {
       if (h > 256 || w > 256) return (int)cudaErrorInvalidValue;
       box[1] = (cuuint32_t)w;
@@ -707,17 +771,18 @@ extern "C" int corr_sample_blocks_per_sm(const void* plan, int contract) {
   int n = -1;
   const cudaError_t e =
       p.int8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, corr_sample_kernel<3, true>,
-                                                             kThreads, smem)
+                                                             Layout<true>::kThreads, smem)
       : contract ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &n, corr_sample_kernel<1, false>, kThreads, smem)
+                       &n, corr_sample_kernel<1, false>, Layout<false>::kThreads, smem)
                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &n, corr_sample_kernel<3, false>, kThreads, smem);
+                       &n, corr_sample_kernel<3, false>, Layout<false>::kThreads, smem);
   return e == cudaSuccess ? n : -1;
 }
 
 // One launch for every level of a pyramid planned from bf16 maps, with the
 // float32 target (the tracker's): targets f32 (N, S, C); coords f32
-// (S, N, 2) at level-0 resolution; out f32 (N, S, L*49). radius must be 3.
+// (S, N, 2) at level-0 resolution; out f32 (N, S, L*(2r+1)^2). radius must
+// be the build's BT_CORR_RADIUS.
 // res_chunk: tracks per block of a resident level; stream_chunk: windows
 // per block of a streamed level. Returns cudaGetLastError() after the
 // launch.

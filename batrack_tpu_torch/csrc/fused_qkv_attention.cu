@@ -1,5 +1,5 @@
-// K2 and K3: softmax attention with head dim 48 for Hopper, read straight
-// from strided q, k and v rows.
+// K2 and K3: softmax attention for Hopper, read straight from strided q, k
+// and v rows, at one head dim d per build.
 //
 // Replaces the TPU kernels batrack_tpu/ops/pallas_attention.py::
 // _fused_qkv_kernel (K2, entry point fused_qkv_attention) and ::_attn_kernel
@@ -12,11 +12,26 @@
 //               with its own key count Nk and key mask (Nk,): the
 //               track-sharded space attention, local queries against the
 //               keys and values gathered from every rank;
-//   K3          one head (C = 48) of separate (B, N, 48) q, k and v arrays.
+//   K3          one head (C = d) of separate (B, N, d) q, k and v arrays.
 // The output (B, N, C) has the heads merged. Heads are split and merged by
 // addressing inside the kernel, so no (B, h, N, hd) copy is ever made in
 // device memory. Keys where the optional key mask is 0 get the logit -1e30,
 // as on the TPU; logits, softmax and the output sums are float32.
+//
+// The head dim d is a compile-time constant, BT_HEAD_DIM (default 48, the
+// tracker's: hidden 384 over 8 heads). ops/cuda_build.py builds one library
+// per d that a caller asks for (ModelConfig's hidden_size / num_heads): any
+// multiple of 8 from 8 to 128. Every size below follows d: the 16-lane
+// k-steps of QK^T, ceil(d / 16); the PV product, m64n{16 ceil(d / 16)}k16;
+// the output accumulators and the output box (d lanes); the K/V ring's
+// stage size and its stage count, four where shared memory holds them
+// (two at d 128, three at 96-112). When d is not a multiple of 16 (8, 24,
+// 40, ...) the last 16-lane box of a head would read 8 lanes of the next
+// head, so q, k and v are then read through 4-D tensor maps with the head
+// as its own axis (lanes-in-head of extent d, head, row, batch), whose
+// out-of-bounds fill gives zeros past lane d: they add nothing to QK^T,
+// and PV's columns past d are never stored. At d 48 the tiles are those
+// the note below describes.
 //
 // Bound on the H100 at the davis_demo shape (12, 2400, 1152) bf16: 106 GFLOP
 // of QK^T and PV (0.107 ms at the bf16 tensor-core peak) and 553 M
@@ -31,10 +46,11 @@
 // tiles of K and V through a four-stage shared-memory ring with TMA
 // (cp.async.bulk.tensor over 3-D tensor maps of (batch, row, lane); rows
 // past N or Nk arrive as zeros and never cross into the next batch row),
-// full/empty mbarriers per stage. Head dim 48 is 96 bytes, too narrow for the
-// usual 128-byte swizzle, so every tile is three boxes of 16 lanes with the
-// 32-byte swizzle, one per k-step. QK^T is wgmma m64n128k16 with Q and K from
-// shared memory; PV is wgmma m64n48k16 with P from registers (the QK^T
+// full/empty mbarriers per stage. A head of 48 lanes is 96 bytes, too narrow
+// for the usual 128-byte swizzle, so every tile is three boxes of 16 lanes
+// (ceil(d / 16) in general) with the 32-byte swizzle, one per k-step. QK^T is
+// wgmma m64n128k16 with Q and K from shared memory; PV is wgmma m64n48k16
+// (m64n{16 ceil(d / 16)}k16) with P from registers (the QK^T
 // accumulators repacked to bf16) and V from shared memory with the
 // transpose bit, so V is never transposed by hand. Each warpgroup issues tile
 // j+1's QK^T and tile j's PV together and runs tile j+1's softmax while PV
@@ -53,7 +69,8 @@
 //
 // float32 (parity runs): one query per thread with its q and output rows
 // in registers, 32-key tiles of K and V in shared memory as float32
-// (broadcast reads), on the float32 pipes.
+// (broadcast reads), on the float32 pipes. Its 2d registers of rows spill
+// at large d (256 floats a thread at d 128); it stays simple.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_runtime.h>
@@ -63,8 +80,14 @@
 
 namespace {
 
+#ifndef BT_HEAD_DIM
+#define BT_HEAD_DIM 48  // the tracker's: hidden 384 over 8 heads
+#endif
+
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kHeadDim = 48;  // the tracker's: hidden 384 over 8 heads
+constexpr int kHeadDim = BT_HEAD_DIM;
+static_assert(kHeadDim >= 8 && kHeadDim <= 128 && kHeadDim % 8 == 0,
+              "head dim: a multiple of 8 from 8 to 128");
 
 // Where the rows live. Strides are in elements; q, k, v and out already
 // point at lane 0 of head 0 of batch 0.
@@ -167,15 +190,26 @@ __global__ void __launch_bounds__(kBQ) attention_f32_kernel(const AttnArgs a) {
 constexpr int kWarpgroups = 2;                 // consumer warpgroups of 64 queries
 constexpr int kTileQ = 64 * kWarpgroups;       // queries per block
 constexpr int kTileK = 128;                    // keys per tile
-constexpr int kStages = 4;                     // K/V tiles in the shared-memory ring
 constexpr int kConsumers = 128 * kWarpgroups;
 constexpr int kThreads = kConsumers + 32;      // and one producer warp
 constexpr int kBox = 16;                       // lanes per TMA box: one wgmma k-step
-constexpr int kBoxes = kHeadDim / kBox;        // 3
+constexpr int kBoxes = (kHeadDim + kBox - 1) / kBox;  // 3 at d 48
+constexpr int kDPad = kBoxes * kBox;           // PV's width: d rounded up to 16
+constexpr bool kSplitHeads = kHeadDim % kBox != 0;  // 4-D tensor maps (header note)
 constexpr int kRowBytes = kBox * 2;            // 32: a box row, one 32-byte swizzle row
 constexpr int kAcc = kTileK / 2;               // QK^T accumulators per thread
+constexpr int kOut = kDPad / 2;                // PV accumulators per thread
+// K/V tiles in the shared-memory ring: four where they fit beside Q, the
+// output staging and 2 KB of barriers and alignment slack
+constexpr int kSmemMax = 232448;
+constexpr int kStageBytes = 2 * kBoxes * kTileK * kRowBytes;
+constexpr int kFitStages =
+    (kSmemMax - 2048 - kBoxes * kTileQ * kRowBytes - kWarpgroups * 64 * kHeadDim * 2) /
+    kStageBytes;
+constexpr int kStages = kFitStages < 4 ? kFitStages : 4;
+static_assert(kStages >= 2, "the K/V ring needs two stages");
 
-// Every tile is a set of three boxes of 16 lanes (32-byte rows, 32-byte
+// Every tile is a set of kBoxes boxes of 16 lanes (32-byte rows, 32-byte
 // swizzle, the layout TMA writes and wgmma reads), one box per k-step of
 // QK^T and one 16-lane column block of V.
 struct __align__(1024) SmemBf16 {
@@ -235,6 +269,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(lane), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// The same over a (batch, row, head, lane-in-head) tensor map: lanes past
+// the head's d arrive as zeros too.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int lane, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(lane), "r"(head), "r"(row),
+      "r"(batch)
       : "memory");
 }
 
@@ -333,24 +379,49 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d (64 x 48) += a (64 x 16, bf16 pairs in registers, the mma.m16n8k16 A
-// fragment per warp) b (16 x 48, MN-major in shared memory: transpose bit set)
-__device__ __forceinline__ void wgmma_m64n48k16_rs(float (&d)[24], const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+// d (64 x N) += a (64 x 16, bf16 pairs in registers, the mma.m16n8k16 A
+// fragment per warp) b (16 x N, MN-major in shared memory: transpose bit
+// set), for N = kDPad: N / 2 accumulators a thread, the operand lists
+// spelled out per N by the table in the body.
+#define BT_F8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define BT_ACC8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define BT_ACC16 BT_ACC8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define BT_ACC24 BT_ACC16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define BT_ACC32 BT_ACC24 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define BT_ACC40 BT_ACC32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define BT_ACC48 BT_ACC40 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define BT_ACC56 BT_ACC48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define BT_ACC64 BT_ACC56 ", %56, %57, %58, %59, %60, %61, %62, %63"
+// N, its accumulator list, the operand numbers of a, desc_b and the scale
+// predicate's source that follow it, then the accumulators' constraints
+#define BT_WGMMA_PV(NN, ACC, A0, A1, A2, A3, B, P, ...)                                   \
+  if constexpr (N == NN)                                                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                         \
+                 "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32.bf16.bf16 {" ACC "}, " \
+                 "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n"     \
+                 : __VA_ARGS__                                                            \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N % 16 == 0 && N >= 16 && N <= 128, "PV width: a multiple of 16 up to 128");
+  BT_WGMMA_PV(16, BT_ACC8, 8, 9, 10, 11, 12, 13, BT_F8(0))
+  BT_WGMMA_PV(32, BT_ACC16, 16, 17, 18, 19, 20, 21, BT_F8(0), BT_F8(8))
+  BT_WGMMA_PV(48, BT_ACC24, 24, 25, 26, 27, 28, 29, BT_F8(0), BT_F8(8), BT_F8(16))
+  BT_WGMMA_PV(64, BT_ACC32, 32, 33, 34, 35, 36, 37, BT_F8(0), BT_F8(8), BT_F8(16), BT_F8(24))
+  BT_WGMMA_PV(80, BT_ACC40, 40, 41, 42, 43, 44, 45, BT_F8(0), BT_F8(8), BT_F8(16), BT_F8(24),
+              BT_F8(32))
+  BT_WGMMA_PV(96, BT_ACC48, 48, 49, 50, 51, 52, 53, BT_F8(0), BT_F8(8), BT_F8(16), BT_F8(24),
+              BT_F8(32), BT_F8(40))
+  BT_WGMMA_PV(112, BT_ACC56, 56, 57, 58, 59, 60, 61, BT_F8(0), BT_F8(8), BT_F8(16), BT_F8(24),
+              BT_F8(32), BT_F8(40), BT_F8(48))
+  BT_WGMMA_PV(128, BT_ACC64, 64, 65, 66, 67, 68, 69, BT_F8(0), BT_F8(8), BT_F8(16), BT_F8(24),
+              BT_F8(32), BT_F8(40), BT_F8(48), BT_F8(56))
 }
 
-// S = Q K^T for one warpgroup's 64 queries and one key tile: three k-steps.
+// S = Q K^T for one warpgroup's 64 queries and one key tile: kBoxes k-steps.
 __device__ __forceinline__ void issue_qk(float (&s)[kAcc], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
   for (int x = 0; x < kBoxes; ++x)
@@ -358,13 +429,13 @@ __device__ __forceinline__ void issue_qk(float (&s)[kAcc], uint32_t q_addr, uint
                         sw32_desc(k_addr + x * kTileK * kRowBytes, 16, 8 * kRowBytes), x);
 }
 
-// O += P V: P from registers, V (keys x 48 lanes) with the transpose bit.
-__device__ __forceinline__ void issue_pv(float (&o)[24], const uint32_t (&p)[kTileK / 16][4],
+// O += P V: P from registers, V (keys x kDPad lanes) with the transpose bit.
+__device__ __forceinline__ void issue_pv(float (&o)[kOut], const uint32_t (&p)[kTileK / 16][4],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < kTileK / 16; ++kk)
-    wgmma_m64n48k16_rs(o, p[kk], sw32_desc(v_addr + kk * 16 * kRowBytes, kTileK * kRowBytes,
-                                            8 * kRowBytes));
+    wgmma_pv<kDPad>(o, p[kk], sw32_desc(v_addr + kk * 16 * kRowBytes, kTileK * kRowBytes,
+                                        8 * kRowBytes));
 }
 
 // Online softmax of one key tile on its QK^T accumulators. This thread holds
@@ -498,17 +569,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (warp == kConsumers / 32) {  // producer: one thread issues every copy
+    // box x (lanes 16x .. 16x + 15) of head h in `row`'s tile
+    const auto load = [&](void* dst, const CUtensorMap* map, uint64_t* bar, int x, int row) {
+      if constexpr (kSplitHeads)
+        tma_load_4d(dst, map, bar, x * kBox, h, row, b);
+      else
+        tma_load(dst, map, bar, h * kHeadDim + x * kBox, row, b);
+    };
     if (lane == 0) {
       mbar_arrive_expect_tx(&sm.q_full, kBoxes * kTileQ * kRowBytes);
-      for (int x = 0; x < kBoxes; ++x)
-        tma_load(sm.q[x], &map_q, &sm.q_full, h * kHeadDim + x * kBox, q0, b);
+      for (int x = 0; x < kBoxes; ++x) load(sm.q[x], &map_q, &sm.q_full, x, q0);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(&sm.empty[st], (j / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[st], 2 * kBoxes * kTileK * kRowBytes);
+        mbar_arrive_expect_tx(&sm.full[st], kStageBytes);
         for (int x = 0; x < kBoxes; ++x) {
-          tma_load(sm.k[st][x], &map_k, &sm.full[st], h * kHeadDim + x * kBox, j * kTileK, b);
-          tma_load(sm.v[st][x], &map_v, &sm.full[st], h * kHeadDim + x * kBox, j * kTileK, b);
+          load(sm.k[st][x], &map_k, &sm.full[st], x, j * kTileK);
+          load(sm.v[st][x], &map_v, &sm.full[st], x, j * kTileK);
         }
       }
     }
@@ -520,9 +597,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool fast_ok = key_mask == nullptr && c > 0.f;
   const uint32_t q_addr = smem_u32(sm.q[0]) + wg * 64 * kRowBytes;
 
-  float o[24];
+  float o[kOut];
 #pragma unroll
-  for (int i = 0; i < 24; ++i) o[i] = 0.f;
+  for (int i = 0; i < kOut; ++i) o[i] = 0.f;
   float s[kAcc];
   uint32_t p[kTileK / 16][4];
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, corr_a, corr_b;
@@ -559,7 +636,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_fence(p);
     if (lane == 0) mbar_arrive(&sm.empty[st]);  // tile j's K and V are read
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < kOut / 4; ++i) {
       o[4 * i] *= corr_a;
       o[4 * i + 1] *= corr_a;
       o[4 * i + 2] *= corr_b;
@@ -575,8 +652,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   wgmma_wait<0>();
   reg_fence(o);
 
-  // normalise, stage this warpgroup's 64 x 48 outputs in shared memory and
-  // store them with one TMA box (rows past N are dropped by the copy)
+  // normalise, stage this warpgroup's 64 x d outputs in shared memory and
+  // store them with one TMA box (rows past N are dropped by the copy; PV's
+  // columns past d are not staged)
 #pragma unroll
   for (int sh = 1; sh <= 2; sh <<= 1) {
     l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
@@ -585,7 +663,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
   __nv_bfloat16* ob = sm.o[wg] + (wl * 16 + g) * kHeadDim + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < kHeadDim / 8; ++i) {
     *reinterpret_cast<__nv_bfloat162*>(ob + 8 * i) =
         __floats2bfloat162_rn(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
     *reinterpret_cast<__nv_bfloat162*>(ob + 8 * kHeadDim + 8 * i) =
@@ -624,17 +702,31 @@ EncodeTiledFn encode_tiled() {
 
 // A bf16 tensor map over (batch, rows, lanes): `lanes` lanes from `base` in
 // each row, rows `stride` elements apart, boxes of box_lanes x box_rows.
+// With heads > 0 the lanes are split into (heads, lanes / heads), heads
+// lanes / heads elements apart, and a box covers one head.
 bool bf16_map(CUtensorMap* map, const void* base, int lanes, int rows, int batch, int stride,
-              int box_lanes, int box_rows, CUtensorMapSwizzle swizzle) {
+              int box_lanes, int box_rows, CUtensorMapSwizzle swizzle, int heads = 0) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(stride) * 2;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  if (heads > 0) {
+    const cuuint64_t d = static_cast<cuuint64_t>(lanes / heads);
+    const cuuint64_t dims[4] = {d, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {d * 2, row_bytes, row_bytes * rows};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_lanes), 1,
+                               static_cast<cuuint32_t>(box_rows), 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                  strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(lanes), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(stride) * 2,
-                                 static_cast<cuuint64_t>(stride) * 2 * rows};
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * rows};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_lanes),
                              static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -645,10 +737,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const uint8
                         void* out, int B, int N, int Nk, int heads, int q_stride, int kv_stride,
                         int o_stride, float scale, cudaStream_t stream) {
   const int C = heads * kHeadDim;
+  const int split = kSplitHeads ? heads : 0;  // q, k and v by head (header note)
   CUtensorMap mq, mk, mv, mo;
-  if (!bf16_map(&mq, q, C, N, B, q_stride, kBox, kTileQ, CU_TENSOR_MAP_SWIZZLE_32B) ||
-      !bf16_map(&mk, k, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B) ||
-      !bf16_map(&mv, v, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B) ||
+  if (!bf16_map(&mq, q, C, N, B, q_stride, kBox, kTileQ, CU_TENSOR_MAP_SWIZZLE_32B, split) ||
+      !bf16_map(&mk, k, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B, split) ||
+      !bf16_map(&mv, v, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B, split) ||
       !bf16_map(&mo, out, C, N, B, o_stride, kHeadDim, 64, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const int smem = static_cast<int>(sizeof(SmemBf16)) + 1024;  // + alignment slack
@@ -663,10 +756,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const uint8
 
 }  // namespace
 
-// Softmax attention over `heads` heads of dim 48 for B batch rows.
-// q: (B, N) rows of stride q_stride; k and v: (B, Nk) rows of stride
+// Softmax attention over `heads` heads of dim d (BT_HEAD_DIM) for B batch
+// rows. q: (B, N) rows of stride q_stride; k and v: (B, Nk) rows of stride
 // kv_stride; out: (B, N) rows of stride o_stride. Head h reads lanes
-// h*48 .. h*48+47 of each row from the given base pointers and writes the
+// h*d .. h*d+d-1 of each row from the given base pointers and writes the
 // same lanes of out. key_mask: (Nk,) uint8 or null. float32 (is_bf16 = 0)
 // or bfloat16 (is_bf16 = 1) throughout; for bf16 every base pointer must be
 // 16-byte aligned and every row stride a multiple of 8 elements (the TMA

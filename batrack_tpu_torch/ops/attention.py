@@ -11,17 +11,23 @@ space attention (parallel/shard_kernels.py) runs this rank's queries
 against the key/value lanes gathered from every rank.
 
 K3 replaces ::_attn_kernel (entry point vmem_attention): single-head
-softmax(q k^T * scale) v over (B, N, 48). The JAX package calls it nowhere;
+softmax(q k^T * scale) v over (B, N, d). The JAX package calls it nowhere;
 it is ported so that every Pallas kernel of the repository has a
 counterpart.
 
 K4, `flash_attention`, replaces batrack_tpu/tracker/blocks.py::
 _tpu_flash_attention, the split-head route to JAX's Pallas TPU flash
-attention that `Attention` takes under BATRACK_TPU_ATTN=flash: (B, h, N, 48)
+attention that `Attention` takes under BATRACK_TPU_ATTN=flash: (B, h, N, d)
 with an optional key mask. On the tracker's split views of one packed qkv
 it launches the same kernel template as K2, on the views' own rows and
 head lanes, with no copy in or out; other layouts are folded into one head
 per batch row first.
+
+The kernels take every head dim d that the TPU kernels take on the
+tracker's path: a multiple of 8 from 8 to 128 (ModelConfig's hidden_size /
+num_heads; 48 at every shipped config). Each d is its own build of the
+source, compiled at its first use (ops/cuda_build.py); any other d raises
+ValueError on a CUDA tensor before a build or a launch.
 
 bf16 input runs on Hopper's tensor cores (TMA-fed shared-memory ring,
 wgmma, 128 queries per block), float32 input on the float32 pipes. The bf16
@@ -45,7 +51,14 @@ import torch
 
 from batrack_tpu_torch.ops import cuda_build
 
-_KERNEL_HEAD_DIM = 48  # the tracker's: hidden 384 over 8 heads
+KERNEL_HEAD_DIMS = range(8, 129, 8)  # the head dims the kernel is built for
+
+
+def check_head_dim(d: int, what: str) -> None:
+    """Raise ValueError unless the kernel takes head dim d."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} (the kernel takes a multiple of 8 "
+                         "from 8 to 128)")
 
 
 def _kv_source(qkv: torch.Tensor, kv: Optional[torch.Tensor]):
@@ -89,15 +102,15 @@ def fused_qkv_attention_plain(qkv: torch.Tensor, heads: int, scale: float,
     return out
 
 
-def _launch(q, k, v, key_mask, out, B, N, Nk, heads, q_stride, kv_stride, scale, what):
-    """One launch of the attention kernel on base pointers and row strides
-    (elements) over contiguous tensors."""
+def _launch(q, k, v, key_mask, out, B, N, Nk, heads, d, q_stride, kv_stride, scale, what):
+    """One launch of the attention kernel built for head dim d on base
+    pointers and row strides (elements) over contiguous tensors."""
     mask = None
     if key_mask is not None:
         if key_mask.shape != (Nk,) or key_mask.device != out.device:
             raise ValueError(f"{what}: key_mask must be ({Nk},) on {out.device}")
         mask = key_mask.to(torch.uint8).contiguous()
-    fn = cuda_build.load("fused_qkv_attention").attention_forward
+    fn = cuda_build.load("fused_qkv_attention", HEAD_DIM=d).attention_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -136,9 +149,9 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
     cuda_build.refuse_autograd("fused_qkv_attention", qkv, kv)
     B, N, C3 = qkv.shape
     C = C3 // 3
-    if C3 % 3 or C % heads or C // heads != _KERNEL_HEAD_DIM:
-        raise ValueError(f"fused_qkv_attention: qkv {tuple(qkv.shape)} with "
-                         f"{heads} heads (the kernel's head dim is {_KERNEL_HEAD_DIM})")
+    if C3 % 3 or C % heads:
+        raise ValueError(f"fused_qkv_attention: qkv {tuple(qkv.shape)} with {heads} heads")
+    check_head_dim(C // heads, "fused_qkv_attention")
     qkv = _kernel_input(qkv, "fused_qkv_attention")
     src, koff = _kv_source(qkv, kv)
     if kv is not None:
@@ -149,7 +162,7 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
     row = src.shape[-1]
     base, esize = src.data_ptr(), src.element_size()
     _launch(qkv.data_ptr(), base + koff * esize, base + (koff + C) * esize, key_mask, out,
-            B, N, src.shape[1], heads, 3 * C, row, scale, "fused_qkv_attention")
+            B, N, src.shape[1], heads, C // heads, 3 * C, row, scale, "fused_qkv_attention")
     fused_qkv_attention.launches += 1
     if kv is not None:
         fused_qkv_attention.kv_launches += 1
@@ -172,29 +185,31 @@ def vmem_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _one_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               key_mask: Optional[torch.Tensor], ndim: int, what: str) -> torch.Tensor:
-    """One launch with one head per batch row on (..., N, 48) q, k and v of
-    `ndim` dims, their leading axes folded into the batch axis: rows of 96
-    (bf16) or 192 (f32) bytes, so every base and row stays 16-byte aligned
-    for the TMA copies. Returns the output in q's shape."""
+    """One launch with one head per batch row on (..., N, d) q, k and v of
+    `ndim` dims, their leading axes folded into the batch axis: rows of 2d
+    (bf16) or 4d (f32) bytes, a multiple of 16, so every base and row stays
+    16-byte aligned for the TMA copies. Returns the output in q's shape."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     cuda_build.refuse_autograd(what, q, k, v)
-    if not (q.shape == k.shape == v.shape) or q.ndim != ndim or q.shape[-1] != _KERNEL_HEAD_DIM:
+    if not (q.shape == k.shape == v.shape) or q.ndim != ndim:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"(the kernel takes equal {ndim}-d shapes ending in {_KERNEL_HEAD_DIM})")
+                         f"(the kernel takes equal {ndim}-d shapes)")
+    check_head_dim(q.shape[-1], what)
     if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
         raise TypeError(f"{what}: q, k and v must share dtype and device")
     N, d = q.shape[-2:]
     q3, k3, v3 = (_kernel_input(x.reshape(-1, N, d), what) for x in (q, k, v))
     out = torch.empty_like(q3)
     _launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), key_mask, out, q3.shape[0], N, N, 1,
-            d, d, scale, what)
+            d, d, d, scale, what)
     return out.view(q.shape)
 
 
 def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                    block_q: int = 512) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (B, N, D) with D = 48 -> (B, N, D).
+    """softmax(q k^T * scale) v over (B, N, D) -> (B, N, D), D a head dim
+    the kernel takes (`KERNEL_HEAD_DIMS`).
 
     block_q is the TPU kernel's query tiling; it is accepted and ignored
     (the CUDA kernel tiles queries by 128 in bf16 and float32)."""
@@ -219,11 +234,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
 
 
 def split_row_stride(x: torch.Tensor) -> Optional[int]:
-    """R when the (B, h, N, 48) tensor x is a head split of rows of R
-    elements (strides (N*R, 48, R, 1), as the views of one packed qkv are)
-    that the kernel can read in place: R a multiple of 8 and at least h*48,
-    the base 16-byte aligned (the TMA copies' rule). None otherwise."""
-    if x.ndim != 4 or x.shape[-1] != _KERNEL_HEAD_DIM:
+    """R when the (B, h, N, d) tensor x is a head split of rows of R
+    elements (strides (N*R, d, R, 1), as the views of one packed qkv are)
+    that the kernel can read in place: d a head dim it takes, R a multiple
+    of 8 and at least h*d, the base 16-byte aligned (the TMA copies' rule).
+    None otherwise."""
+    if x.ndim != 4 or x.shape[-1] not in KERNEL_HEAD_DIMS:
         return None
     _, h, N, d = x.shape
     R = x.stride(2)
@@ -235,7 +251,7 @@ def split_row_stride(x: torch.Tensor) -> Optional[int]:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Split-head softmax attention, (B, h, N, 48) -> (B, h, N, 48).
+    """Split-head softmax attention, (B, h, N, d) -> (B, h, N, d).
 
     key_mask: optional (N,) bool; False keys are excluded from every query's
     softmax (logit -1e30), as K2 excludes them. The JAX route assumes at
@@ -243,9 +259,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
     When q, k and v are head splits of rows (`split_row_stride`), k and v
     of one row stride, the kernel reads them in place, as K2 reads the
-    packed qkv, and writes (B, N, h*48) rows whose (B, h, N, 48) view it
+    packed qkv, and writes (B, N, h*d) rows whose (B, h, N, d) view it
     returns: the caller's merge of the heads is then a view too. Any other
-    layout is folded into (B*h, N, 48) copies first."""
+    layout is folded into (B*h, N, d) copies first."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, key_mask)
     r_q, r_k, r_v = (split_row_stride(x) for x in (q, k, v))
@@ -255,7 +271,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         cuda_build.refuse_autograd("flash_attention", q, k, v)
         B, h, N, d = q.shape
         out = torch.empty((B, N, h * d), dtype=q.dtype, device=q.device)
-        _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask, out, B, N, N, h, r_q, r_k,
+        _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask, out, B, N, N, h, d, r_q, r_k,
                 scale, "flash_attention")
         flash_attention.strided_launches += 1
         out = out.view(B, N, h, d).permute(0, 2, 1, 3)

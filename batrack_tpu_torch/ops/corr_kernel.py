@@ -31,16 +31,21 @@ kernel, on the same pipeline and plan, each with its own entry point:
     the tensor cores instead of three, f32 accumulation.
 Each route counts its own launches: `corr_sample.launches` (bf16 maps,
 float32 contraction, the tracker's), `.mxu_launches`, `.int8_launches`.
-Every route takes radius 3 only and raises on another before a launch.
 No config of either package selects the options; scripts/torch_corr_ab.py
 does, as scripts/corr_ab.py does for the TPU kernel.
+
+Every route takes the widths the Pallas function takes: radius 1 to 4, C
+64, 128 or 256 channels, up to 8 levels (the tracker's are radius 3 and C
+128). Each (radius, C) is its own build of the source, compiled at its
+first use (ops/cuda_build.py); any other width raises ValueError on a CUDA
+tensor before a build or a launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,12 +55,13 @@ from batrack_tpu_torch.ops.corr import corr_sample_level
 FMAP_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 CONTRACTS = ("vpu", "mxu")
 
-# The kernel's layout (csrc/corr_sample.cu): the window radius it takes
-# (the tracker's corr_radius), a block's shared memory on the H100, what the
-# kernel keeps beside a resident map (kExtraBytes), and the work per block.
-KERNEL_RADIUS = 3
+# The kernel's widths and layout (csrc/corr_sample.cu): the window radii
+# and channel counts it is built for, the levels one launch takes, a
+# block's shared memory on the H100, and the work per block.
+KERNEL_RADII = range(1, 5)
+KERNEL_CHANNELS = (64, 128, 256)
+MAX_LEVELS = 8
 SMEM_LIMIT = 232448
-SMEM_RESERVE = 3072
 RES_CHUNK = 256     # tracks per block of a resident level (one frame's map)
 STREAM_CHUNK = 128  # windows per block of a streamed level
 _PLAN_CACHE = 16    # packed pyramids whose tensor maps are kept
@@ -66,21 +72,36 @@ _ROUTES = {("bf16", "vpu"): ("corr_sample_pyramid", "launches", "corr_sample"),
                              "corr_sample (int8 maps)")}
 
 
+def check_widths(radius: int, C: int, L: int) -> None:
+    """Raise ValueError unless the kernel takes this radius, channel count
+    and number of levels."""
+    if radius not in KERNEL_RADII or C not in KERNEL_CHANNELS or not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"corr_sample: radius {radius}, C {C}, {L} levels (the kernel takes "
+                         f"radius 1 to 4, C in {KERNEL_CHANNELS} and 1 to {MAX_LEVELS} levels)")
+
+
 def resident_map_bytes(h: int, w: int, C: int = 128, elem_bytes: int = 2) -> int:
     """Shared memory of one frame's (h, w, C) map held by a block: its
-    taps' C * elem_bytes bytes cut into 128-byte rows (two sections of C/2
-    bf16 channels, or one of C int8 ones), each section h*w rows rounded up
-    to 1024 bytes (the 128-byte swizzle's period)."""
+    taps' C * elem_bytes bytes cut into 128-byte rows (C/64 sections of 64
+    bf16 channels, or C/128 of 128 int8 ones, at least one: int8 maps at C
+    64 fill half of each row), each section h*w rows rounded up to 1024
+    bytes (the 128-byte swizzle's period)."""
     section = h * w * 128
-    return C * elem_bytes // 128 * (-(-section // 1024) * 1024)
+    return max(1, C * elem_bytes // 128) * (-(-section // 1024) * 1024)
 
 
-def resident_levels(shapes, C: int = 128, elem_bytes: int = 2) -> Tuple[bool, ...]:
+def resident_levels(shapes, C: int = 128, elem_bytes: int = 2, radius: int = 3,
+                    reserve: Optional[int] = None) -> Tuple[bool, ...]:
     """Per level (h, w): whether the kernel keeps one frame's map in shared
     memory. It must fit beside the kernel's reserve, and measure at most
-    256 x 256 (one TMA box per section). The other levels are streamed."""
+    256 x 256 (one TMA box per section). The other levels are streamed.
+    The reserve is the (radius, C) build's own (corr_extra_bytes(): 3072
+    bytes at radius 3), read from the library unless it is given."""
+    if reserve is None:
+        check_widths(radius, C, len(shapes))
+        reserve = _library(radius, C).corr_extra_bytes()
     return tuple(h <= 256 and w <= 256
-                 and resident_map_bytes(h, w, C, elem_bytes) + SMEM_RESERVE <= SMEM_LIMIT
+                 and resident_map_bytes(h, w, C, elem_bytes) + reserve <= SMEM_LIMIT
                  for h, w in shapes)
 
 
@@ -172,19 +193,15 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
     if (targets.dtype != torch.float32 or coords.dtype != torch.float32
             or pyr.flat.dtype not in (torch.bfloat16, torch.int8)):
         raise TypeError("corr_sample: needs f32 targets/coords and a bf16 or int8 pyramid")
-    if (C != pyr.C or S != pyr.S or coords.shape != (S, N, 2)
-            or C != 128 or L > 8):
+    if C != pyr.C or S != pyr.S or coords.shape != (S, N, 2):
         raise ValueError(
             f"corr_sample: shapes targets {tuple(targets.shape)}, coords "
-            f"{tuple(coords.shape)}, pyramid S={pyr.S} C={pyr.C} L={L} r={radius} "
-            "(the kernel takes C = 128, the tracker's latent width, and L <= 8)")
+            f"{tuple(coords.shape)}, pyramid S={pyr.S} C={pyr.C} L={L}")
+    check_widths(radius, C, L)
     int8 = pyr.flat.dtype == torch.int8
     if int8 and (pyr.scales is None or pyr.scales.shape != (L,)
                  or pyr.scales.dtype != torch.float32):
         raise ValueError("corr_sample: int8 maps need (L,) float32 scales")
-    if radius != KERNEL_RADIUS:
-        raise ValueError(f"corr_sample: radius {radius} (the kernel takes "
-                         f"{KERNEL_RADIUS}, the tracker's corr_radius)")
     targets = targets.contiguous()
     coords = coords.contiguous()
     devices = {targets.device, coords.device, pyr.flat.device}
@@ -194,9 +211,9 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
         raise ValueError("corr_sample: inputs on different devices")
     out = torch.empty((N, S, L * (2 * radius + 1) ** 2), dtype=torch.float32,
                       device=targets.device)
-    lib = _library()
+    lib = _library(radius, C)
     entry, counter, what = _ROUTES["int8" if int8 else "bf16", contract]
-    args = [_plan(lib, pyr), targets.data_ptr(), coords.data_ptr(), out.data_ptr()]
+    args = [_plan(lib, pyr, radius), targets.data_ptr(), coords.data_ptr(), out.data_ptr()]
     if int8:
         args.append(pyr.scales.data_ptr())  # read by the kernel on the same stream
     with torch.cuda.device(targets.device):
@@ -207,31 +224,34 @@ def corr_sample(pyr: CorrPyramid, targets: torch.Tensor, coords: torch.Tensor,
     return out
 
 
-def blocks_per_sm(pyr: CorrPyramid, contract: str = "vpu") -> int:
+def blocks_per_sm(pyr: CorrPyramid, contract: str = "vpu", radius: int = 3) -> int:
     """Blocks of the kernel that one SM holds at once for this packed (CUDA)
-    pyramid's launch: its shared memory and registers allow."""
+    pyramid's launch at this radius: its shared memory and registers allow."""
     _check_options(pyr, contract)
-    lib = _library()
+    check_widths(radius, pyr.C, len(pyr.shapes))
+    lib = _library(radius, pyr.C)
     with torch.cuda.device(pyr.flat.device):
-        n = lib.corr_sample_blocks_per_sm(_plan(lib, pyr), int(contract == "mxu"))
+        n = lib.corr_sample_blocks_per_sm(_plan(lib, pyr, radius), int(contract == "mxu"))
     if n < 0:
         raise RuntimeError("corr_sample: occupancy query failed")
     return n
 
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
 _plans: "OrderedDict[tuple, ctypes.Array]" = OrderedDict()
 
 
-def _library() -> ctypes.CDLL:
-    """csrc/corr_sample.cu, built at first use, its entry points typed once."""
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("corr_sample")
+def _library(radius: int, C: int) -> ctypes.CDLL:
+    """csrc/corr_sample.cu built for (radius, C) at first use, its entry
+    points typed once."""
+    lib = _libs.get((radius, C))
+    if lib is None:
+        lib = cuda_build.load("corr_sample", RADIUS=radius, C=C)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tables = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i32), ctypes.POINTER(i32)]
-        lib.corr_plan_bytes.restype = i32
-        lib.corr_plan_bytes.argtypes = []
+        for query in (lib.corr_plan_bytes, lib.corr_extra_bytes):
+            query.restype = i32
+            query.argtypes = []
         lib.corr_sample_plan.restype = i32
         lib.corr_sample_plan.argtypes = [ptr, ptr, i32, i32, i32, *tables, ctypes.POINTER(i32),
                                          i32]
@@ -241,8 +261,8 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.restype = i32
             fn.argtypes = [ptr] * (5 if entry.endswith("int8") else 4) + [i32] * 4 + [ptr]
-        _lib = lib
-    return _lib
+        _libs[radius, C] = lib
+    return lib
 
 
 def _level_tables(pyr: CorrPyramid):
@@ -252,14 +272,16 @@ def _level_tables(pyr: CorrPyramid):
             (ctypes.c_int * L)(*[w for _, w in pyr.shapes]))
 
 
-def _plan(lib: ctypes.CDLL, pyr: CorrPyramid) -> ctypes.Array:
-    """The kernel's tensor maps for a packed pyramid, encoded on its first
-    call and reused by the next ones. A map encodes only the buffer's
-    address, element type, shapes and the residency chosen from them, so
-    the key is exactly that: a new pyramid packed at the same address with
-    the same type and shapes gets the same maps, and an int8 and a bf16
-    pyramid never share them."""
-    key = (pyr.flat.device.index, pyr.flat.data_ptr(), pyr.flat.dtype, pyr.S, pyr.C, pyr.shapes)
+def _plan(lib: ctypes.CDLL, pyr: CorrPyramid, radius: int) -> ctypes.Array:
+    """The tensor maps of the build for `radius` for a packed pyramid,
+    encoded on its first call and reused by the next ones. A map encodes
+    only the buffer's address, element type, shapes, the window box (from
+    the radius) and the residency chosen from them, so the key is exactly
+    that: a new pyramid packed at the same address with the same type and
+    shapes gets the same maps, and an int8 and a bf16 pyramid, or two radii,
+    never share them."""
+    key = (pyr.flat.device.index, pyr.flat.data_ptr(), pyr.flat.dtype, pyr.S, pyr.C, pyr.shapes,
+           radius)
     plan = _plans.get(key)
     if plan is not None:
         _plans.move_to_end(key)
@@ -269,7 +291,8 @@ def _plan(lib: ctypes.CDLL, pyr: CorrPyramid) -> ctypes.Array:
         raise ValueError(f"corr_sample: empty pyramid level in {pyr.shapes}")
     plan = ctypes.create_string_buffer(lib.corr_plan_bytes())
     elem = pyr.flat.element_size()
-    resident = (ctypes.c_int * L)(*resident_levels(pyr.shapes, pyr.C, elem))
+    resident = (ctypes.c_int * L)(*resident_levels(pyr.shapes, pyr.C, elem,
+                                                    reserve=lib.corr_extra_bytes()))
     with torch.cuda.device(pyr.flat.device):
         status = lib.corr_sample_plan(plan, pyr.flat.data_ptr(), pyr.S, pyr.C, L,
                                       *_level_tables(pyr), resident, int(elem == 1))

@@ -6,6 +6,15 @@ loaded with ctypes. The build happens at first use, into build/kernels/ at
 the root of the checkout (listed in .gitignore), and is reused while the
 library is newer than its source. Nothing here runs when the module is
 imported.
+
+A source's widths are compile-time constants (`WIDTHS`): the attention
+kernel's head dim, the correlation kernel's radius and channel count. With
+no width given, or with a source's default widths, a source is built as it
+stands into build/kernels/lib<name>.so. Any other width is its own library,
+compiled once with the widths as -D flags into
+build/kernels/lib<name>_<tag>.so, e.g. `load("fused_qkv_attention",
+HEAD_DIM=64)` into libfused_qkv_attention_d64.so and `load("corr_sample",
+RADIUS=4, C=128)` into libcorr_sample_r4_c128.so.
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple, Union
 
 import torch
 
@@ -24,7 +33,37 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+# per source, each width: (keyword, macro read by the source, its default,
+# prefix in the library's tag)
+WIDTHS = {
+    "fused_qkv_attention": (("HEAD_DIM", "BT_HEAD_DIM", 48, "d"),),
+    "corr_sample": (("RADIUS", "BT_CORR_RADIUS", 3, "r"), ("C", "BT_CORR_C", 128, "c")),
+}
+
+# a build: the source's name and its widths, (keyword, value) pairs in
+# WIDTHS order, empty for the default build
+Spec = Tuple[str, Tuple[Tuple[str, int], ...]]
+
+_loaded: Dict[Spec, ctypes.CDLL] = {}
+
+
+def spec(name: str, **widths: int) -> Spec:
+    """The build of csrc/<name>.cu at the given widths. Widths left out take
+    their defaults; a build whose widths are all the defaults is the
+    default build (no -D flags, lib<name>.so)."""
+    table = WIDTHS.get(name, ())
+    known = {key for key, _, _, _ in table}
+    if set(widths) - known:
+        raise ValueError(f"{name}: unknown widths {sorted(set(widths) - known)} "
+                         f"(it takes {sorted(known) or 'none'})")
+    values = tuple((key, int(widths.get(key, default))) for key, _, default, _ in table)
+    if all(v == default for (_, v), (_, _, default, _) in zip(values, table)):
+        return name, ()
+    return name, values
+
+
+def _as_spec(item: Union[str, Spec]) -> Spec:
+    return spec(item) if isinstance(item, str) else spec(item[0], **dict(item[1]))
 
 
 def _nvcc() -> str:
@@ -36,48 +75,67 @@ def _nvcc() -> str:
                        "machine (CUDA_HOME or /usr/local/cuda)")
 
 
-def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def lib_path(s: Spec) -> Path:
+    """build/kernels/lib<name>.so, or lib<name>_<tag>.so for other widths."""
+    name, values = s
+    prefixes = {key: prefix for key, _, _, prefix in WIDTHS.get(name, ())}
+    tag = "_".join(f"{prefixes[key]}{v}" for key, v in values)
+    return BUILD_DIR / f"lib{name}{'_' + tag if tag else ''}.so"
 
 
-def _stale(name: str) -> bool:
-    lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+def command(s: Spec, out: Path) -> List[str]:
+    """The nvcc command that builds `s` into `out`."""
+    name, values = s
+    macros = {key: macro for key, macro, _, _ in WIDTHS.get(name, ())}
+    defines = [f"-D{macros[key]}={v}" for key, v in values]
+    return [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile the named sources (csrc/<name>.cu), one nvcc process each,
-    all started together. Returns each build's compiler output (register
-    and shared-memory use from -Xptxas -v). Raises if any build fails."""
+def _stale(s: Spec) -> bool:
+    lib = lib_path(s)
+    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{s[0]}.cu").stat().st_mtime
+
+
+def _label(s: Spec) -> str:
+    return lib_path(s).name[3:-3]
+
+
+def build(items: Iterable[Union[str, Spec]]) -> Dict[str, str]:
+    """Compile the named sources (csrc/<name>.cu), each a name (the default
+    build) or a `spec(...)`, one nvcc process each, all started together.
+    Returns each build's compiler output (register and shared-memory use
+    from -Xptxas -v), keyed by its library's name without lib and .so
+    (e.g. "fused_qkv_attention_d64"). Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        if not _stale(name):
+    for s in dict.fromkeys(_as_spec(i) for i in items):
+        if not _stale(s):
             continue
-        tmp = BUILD_DIR / f"lib{name}.so.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp)
+        tmp = lib_path(s).with_suffix(f".so.tmp{os.getpid()}")
+        procs[s] = (subprocess.Popen(command(s, tmp), stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True), tmp)
     logs, failed = {}, []
-    for name, (proc, tmp) in procs.items():
-        logs[name] = proc.communicate()[0]
+    for s, (proc, tmp) in procs.items():
+        logs[_label(s)] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(name)
+            failed.append(_label(s))
         else:
-            os.replace(tmp, _lib_path(name))
+            os.replace(tmp, lib_path(s))
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, **widths: int) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu at the given widths, built
+    first if needed."""
+    s = spec(name, **widths)
+    lib = _loaded.get(s)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
+        build([s])
+        lib = ctypes.CDLL(str(lib_path(s)))
+        _loaded[s] = lib
     return lib
 
 

@@ -162,6 +162,14 @@ Phases, each of which fails the run when it fails:
    forward equal to the count from the code, K1 4 and K2 0 per append in
    the SLAM loop (its tracks stay under K2's threshold); every off-path
    counter 0. Prints each reading and the phase's seconds.
+14. the tracker at another head dim: BATrack + MDTrackerAdapter at
+   davis_demo with model.num_heads 6 (hidden 384 over 6 heads: head dim
+   64, its own build of K2's source) for 24 frames, the counters set to 0
+   just before and read just after: K2 24 launches per append, every one
+   at head dim 64, K1 4, every off-path counter 0; the first append's K1
+   and K2 launches against the plain versions (1e-4, two bf16 ulps);
+   frames/s, synchronised stage ms and K2 timed on the first append's
+   input beside SDPA and its bound.
 
 Phase 4 also prints the tracker forward's TFLOP (utils/flops.py) and
 TFLOP/s at its synchronised ms per append.
@@ -196,14 +204,26 @@ maps (fmap_dtype="int8"), two more instantiations of K1's kernel, at K1's
 shapes against their plain versions and times them; then it drives the
 path that selects them,
 scripts/torch_corr_ab.py, with their launch counters set to 0 just before
-and read just after. Last in phase 2, K2 packed, K2 kv= (slim and packed
+and read just after. Later in phase 2, K2 packed, K2 kv= (slim and packed
 sources), K3 and K4 are held against their plain versions at the edges of
 the bf16 kernel's tiling: query and key counts that leave its 128-query
 and 128-key tiles ragged, fewer keys than one tile, and key masks that
-mask whole key tiles. Phase 3 adds one bf16 forward under
-BATRACK_TPU_ATTN=flash, held against the fused route's forward at the bf16
-limits: K4 must launch as often as K2 does there, every time on the split
-views in place (its strided counter), and K2 not at all. Phases 4 and 6
+mask whole key tiles. Last in phase 2, it holds the kernels at the widths their
+TPU kernels take beside the tracker's (each width its own build, all
+built in phase 1): K2 packed, K2 kv= (slim source), K3 and K4 (split
+views) at head dims 24, 32, 64, 96 and 128 with 8 heads on (12, 2400)
+rows in bf16, and at 128 in float32; the float32 route at the tracker's
+d 48 (K2 packed at (12, 2400, 1152), as phase 3's float32 forwards
+launch it, and K2 kv= at bench_scaling_torch.py's tracker shape, 8
+frames of 1024 tracks); K1's three routes at radius 1, 2 and 4 (C 128),
+at C 64 and 256 (radius 3) and at radius 4 with C 256 (three consumer
+warps a block) on davis_demo's levels. Each is held
+against its plain version at the limits above and timed beside its plain
+version, its bound and, for attention, SDPA. Phase 3 adds one bf16
+forward under BATRACK_TPU_ATTN=flash, held against the fused route's
+forward at the bf16 limits: K4 must launch as often as K2 does there,
+every time on the split views in place (its strided counter), and K2 not
+at all. Phases 4 and 6
 check 24 attention launches and 4 K1 launches per append (6 space blocks x
 4 iterations, one K1 per iteration), and that K3, K4 and K1's options
 launch 0 times. Phase 2 prints, beside the bound of K1 and of each of its
@@ -216,7 +236,12 @@ path's shape under "keyframe_path" and K2's masked ones under "masked";
 phase 10 its launches and first-append checks under "davis_jpeg_path",
 phase 11 its launches, first-append checks and times at 1536 tracks under
 "sintel_path"; phases 12 and 13 run in subprocesses, whose launches stay
-out of it), the card's name and power limit
+out of it; then one entry per kernel at each other width, named with its
+width (fused_qkv_attention_d64, corr_sample_int8_r4_c128, ...; the
+float32 route's rows end in _f32), whose launches are 0 except K2's at
+head dim 64, phase 14's; fused_qkv_attention_f32, K2 packed at d 48, also
+gives its launches per float32 forward of phase 3), the card's name and
+power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result. The sha256 it prints first covers this script, the scripts its
@@ -383,6 +408,12 @@ def plain_kernels(jitter_gen=None):
 
 
 # ---------------------------------------------------------------- K1
+# K1's routes: map type, contraction, kernels-line name, line of the TPU
+# kernel in batrack_tpu/ops/pallas_corr.py
+K1_ROUTES = (("bf16", "vpu", "corr_sample", 52), ("bf16", "mxu", "corr_sample_mxu", 110),
+             ("int8", "vpu", "corr_sample_int8", 72))
+
+
 def k1_taps(shapes, coords, radius):
     """The work every K1 variant must do: the (2r+2)^2 integer taps of each
     window that lie in its level's map, over the levels' (H, W) `shapes`
@@ -442,9 +473,7 @@ def phase_k1(dev, gen):
     shapes = [tuple(fl.shape[2:]) for fl in pyramid]
     taps = k1_taps(shapes, coords, RADIUS)
     entries = []
-    for fd, ct, name, line in (("bf16", "vpu", "corr_sample", 52),
-                               ("bf16", "mxu", "corr_sample_mxu", 110),
-                               ("int8", "vpu", "corr_sample_int8", 72)):
+    for fd, ct, name, line in K1_ROUTES:
         with full_fp32():
             pyr = pack_pyramid(pyramid, fd)
             out = corr_sample(pyr, targets, coords, RADIUS, contract=ct)
@@ -786,6 +815,194 @@ def phase_edges(dev, gen):
     return worst
 
 
+# ---------------------------------------------------------------- other widths
+# Phase 2's widths beside the tracker's: K2, K2 kv=, K3 and K4 at these head
+# dims, 8 heads each (the tracker's shape with hidden 8 d), in bf16 and, at
+# WIDTH_F32_HEAD_DIM, float32; K1's three routes at these (radius, C) on
+# davis_demo's levels. Each width is its own build (ops/cuda_build.py).
+WIDTH_HEAD_DIMS = (24, 32, 64, 96, 128)
+WIDTH_F32_HEAD_DIM = 128          # the float32 route's widest rows: 2d floats a thread
+# (4, 256): the one width whose bf16 windows leave room for 3 consumer
+# warps, not 6 (csrc/corr_sample.cu, Layout::kWarps)
+WIDTH_K1 = ((1, 128), (2, 128), (4, 128), (3, 64), (3, 256), (4, 256))
+SCALING_TRACKS, SCALING_S = 1024, 8  # bench_scaling_torch.py's tracker section (float32)
+
+
+def width_builds():
+    """The builds of every width phase 2 and phase 14 run beside the
+    default ones."""
+    from batrack_tpu_torch.ops import cuda_build
+
+    return ([cuda_build.spec("fused_qkv_attention", HEAD_DIM=d) for d in WIDTH_HEAD_DIMS]
+            + [cuda_build.spec("corr_sample", RADIUS=r, C=c) for r, c in WIDTH_K1])
+
+
+def attention_row(label, kernel, plain, library, d, n_logits, nbytes, f32=False, reps=20):
+    """One attention kernel call against its plain version (two bf16 ulps,
+    or TOL["k2_f32"] in float32), then timed beside the plain version, one
+    SDPA call on the same inputs and its bound (the exponentials, or in
+    float32 the products on the float32 pipes). Returns the kernels-line
+    numbers."""
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    with full_fp32():
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = max_err(out, ref)
+        check(f"{label} vs plain", err, TOL["k2_f32"] if f32 else bf16_tol(ref))
+        ms = cuda_ms(kernel, reps=reps)
+        plain_ms = cuda_ms(plain, reps=2)
+        library_ms = cuda_ms(library, reps=reps)
+    if f32:
+        flops = 4 * n_logits * d
+        bound_ms, bound_by = bound(nbytes, [flops / F32_FLOPS, n_logits / SFU_OPS_S])
+        what = f"{flops / 1e9:.1f} GFLOP f32, {n_logits / 1e6:.0f} M exp, {nbytes / 1e6:.1f} MB"
+    else:
+        bound_ms, bound_by, what = attention_bound(n_logits, d, nbytes)
+    log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  "
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {what})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def attention_width_rows(d, dt, dev, gen, reps=20):
+    """K2 packed, K2 kv= (slim source), K3 and K4 (split views) at head dim
+    d with HEADS heads on the tracker's (S, NQ) rows, in dtype dt: each
+    against its plain version, then timed (attention_row). Returns their
+    kernels-line entries."""
+    import torch.nn.functional as F
+
+    from batrack_tpu_torch.ops.attention import (flash_attention, flash_attention_plain,
+                                                 fused_qkv_attention, fused_qkv_attention_plain,
+                                                 vmem_attention, vmem_attention_plain)
+
+    C, scale, esize = HEADS * d, d ** -0.5, torch.finfo(dt).bits // 8
+    f32 = dt == torch.float32
+    qkv = torch.randn((S, NQ, 3 * C), generator=gen, device=dev).to(dt)
+    kv = torch.randn((S, NQ, 2 * C), generator=gen, device=dev).to(dt)
+    q, k, v = split_heads(qkv, HEADS)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    ks, vs = (x.contiguous() for x in kv.view(S, NQ, 2, HEADS, d).permute(2, 0, 3, 1, 4))
+    q3, k3, v3 = (x.reshape(S * HEADS, NQ, d) for x in (qc, kc, vc))
+    n_logits, rows = S * HEADS * NQ * NQ, S * NQ * C * esize
+    sdpa = F.scaled_dot_product_attention
+    strided = flash_attention.strided_launches
+    cases = [
+        ("fused_qkv_attention", "batrack_tpu/ops/pallas_attention.py:22",
+         lambda: fused_qkv_attention(qkv, HEADS, scale),
+         lambda: fused_qkv_attention_plain(qkv, HEADS, scale),
+         lambda: sdpa(qc, kc, vc, scale=scale), 4 * rows),
+        ("fused_qkv_attention_kv", "batrack_tpu/ops/pallas_attention.py:22",
+         lambda: fused_qkv_attention(qkv, HEADS, scale, kv=kv),
+         lambda: fused_qkv_attention_plain(qkv, HEADS, scale, kv=kv),
+         lambda: sdpa(qc, ks, vs, scale=scale), 4 * rows),
+        ("vmem_attention", "batrack_tpu/ops/pallas_attention.py:156",
+         lambda: vmem_attention(q3, k3, v3, scale),
+         lambda: vmem_attention_plain(q3, k3, v3, scale),
+         lambda: sdpa(q3[:, None], k3[:, None], v3[:, None], scale=scale), 4 * rows),
+        ("flash_attention", "batrack_tpu/tracker/blocks.py:148",
+         lambda: flash_attention(q, k, v, scale),
+         lambda: flash_attention_plain(q, k, v, scale),
+         lambda: sdpa(q, k, v, scale=scale), 4 * rows)]
+    entries = []
+    for name, line, kernel, plain, library, nbytes in cases:
+        row = attention_row(f"{name} d={d} {str(dt)[6:]}", kernel, plain, library, d,
+                            n_logits, nbytes, f32, reps)
+        entries.append({"name": f"{name}_d{d}{'_f32' if f32 else ''}", "route": "cuda",
+                        "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu",
+                        "replaces": line, "head_dim": d, "dtype": str(dt)[6:], **row})
+    if flash_attention.strided_launches == strided:
+        raise AssertionError(f"K4 at d={d} did not read the split views in place")
+    return entries
+
+
+def phase_attention_widths(dev, gen):
+    """Phase 2, other head dims: K2, K2 kv=, K3 and K4 at WIDTH_HEAD_DIMS in
+    bf16 and at WIDTH_F32_HEAD_DIM in float32, checked and timed; then the
+    float32 route's rows at the tracker's d 48: K2 packed at
+    phase 3's float32 forward shape and K2 kv= at bench_scaling_torch.py's
+    tracker section's (one rank), timed beside SDPA in float32."""
+    import torch.nn.functional as F
+
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+
+    entries = []
+    for d in WIDTH_HEAD_DIMS:
+        log(f"[widths] K2, K2 kv=, K3, K4 at head dim {d}: qkv ({S}, {NQ}, {3 * HEADS * d}) "
+            f"bf16, {HEADS} heads")
+        entries += attention_width_rows(d, torch.bfloat16, dev, gen)
+    log(f"[widths] the same at head dim {WIDTH_F32_HEAD_DIM} in float32")
+    entries += attention_width_rows(WIDTH_F32_HEAD_DIM, torch.float32, dev, gen, reps=5)
+    d, scale = HIDDEN // HEADS, (HIDDEN // HEADS) ** -0.5
+    for n, nk, kv_src in ((NQ, NQ, False), (SCALING_TRACKS, SCALING_TRACKS, True)):
+        b = S if not kv_src else SCALING_S
+        log(f"[f32 route] attention_f32_kernel at d {d}: qkv ({b}, {n}, {3 * HIDDEN}) float32"
+            + (f", kv= slim ({b}, {nk}, {2 * HIDDEN})" if kv_src else ""))
+        qkv = torch.randn((b, n, 3 * HIDDEN), generator=gen, device=dev)
+        kv = torch.randn((b, nk, 2 * HIDDEN), generator=gen, device=dev) if kv_src else None
+        q, k, v = (x.contiguous() for x in split_heads(qkv, HEADS))
+        if kv_src:
+            k, v = (x.contiguous() for x in kv.view(b, nk, 2, HEADS, d).permute(2, 0, 3, 1, 4))
+        row = attention_row(
+            "fused_qkv_attention float32", lambda: fused_qkv_attention(qkv, HEADS, scale, kv=kv),
+            lambda: fused_qkv_attention_plain(qkv, HEADS, scale, kv=kv),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), d,
+            b * HEADS * n * nk, 4 * b * n * HIDDEN * 4, f32=True, reps=10)
+        entries.append({"name": f"fused_qkv_attention{'_kv' if kv_src else ''}_f32",
+                        "route": "cuda", "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu",
+                        "replaces": "batrack_tpu/ops/pallas_attention.py:22", "head_dim": d,
+                        "dtype": "float32", "shape": [b, n, 3 * HIDDEN], **row})
+    return entries
+
+
+def phase_k1_widths(dev, gen):
+    """Phase 2, other widths of K1: its three routes at each (radius, C) of
+    WIDTH_K1 on davis_demo's levels (C channels), each against its plain
+    version (1e-4) and timed beside its plain version and its bound, with
+    its resident levels and blocks per SM."""
+    from batrack_tpu_torch.ops.corr import build_pyramid
+    from batrack_tpu_torch.ops.corr_kernel import (blocks_per_sm, corr_sample, corr_sample_plain,
+                                                   pack_pyramid, resident_levels)
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    entries = []
+    u = torch.rand((S, NQ, 2), generator=gen, device=dev)
+    coords = torch.stack([u[..., 0] * (W4 + 8) - 4, u[..., 1] * (H4 + 8) - 4], -1)
+    for radius, c in WIDTH_K1:
+        log(f"[widths] K1 at radius {radius}, C {c}: fmaps ({S}, {c}, {H4}, {W4}) x {LEVELS} "
+            f"levels, targets ({NQ}, {S}, {c}) f32")
+        pyramid = build_pyramid(torch.randn((S, c, H4, W4), generator=gen, device=dev), LEVELS)
+        targets = torch.randn((NQ, S, c), generator=gen, device=dev)
+        shapes = [tuple(fl.shape[2:]) for fl in pyramid]
+        taps = k1_taps(shapes, coords, radius)
+        for fd, ct, name, line in K1_ROUTES:
+            pyr = pack_pyramid(pyramid, fd)
+            with full_fp32():
+                out = corr_sample(pyr, targets, coords, radius, contract=ct)
+                torch.cuda.synchronize()
+                assert out.shape == (NQ, S, LEVELS * (2 * radius + 1) ** 2)
+                err = max_err(out, corr_sample_plain(pyr, targets, coords, radius, contract=ct))
+                check(f"K1 r={radius} C={c}, {fd} maps, {ct} contraction vs plain", err,
+                      TOL["k1"])
+                ms = cuda_ms(lambda: corr_sample(pyr, targets, coords, radius, contract=ct),
+                             reps=30)
+                plain_ms = cuda_ms(lambda: corr_sample_plain(pyr, targets, coords, radius,
+                                                             contract=ct), reps=2)
+            bound_ms, bound_by, nbytes = k1_bound(pyr, targets, coords, radius, taps, ct)
+            log(f"  {name}: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  "
+                f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB); resident "
+                f"{resident_levels(shapes, c, pyr.flat.element_size(), radius)}, "
+                f"{blocks_per_sm(pyr, ct, radius)} blocks per SM")
+            entries.append({"name": f"{name}_r{radius}_c{c}", "route": "cuda",
+                            "source": "batrack_tpu_torch/csrc/corr_sample.cu",
+                            "replaces": f"batrack_tpu/ops/pallas_corr.py:{line}",
+                            "radius": radius, "channels": c, "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": None})
+    return entries
+
+
 # ---------------------------------------------------------------- tracker
 def tracker_input(images, depths, dev, gen):
     """A davis_demo append's tracker input: the first 12 frames, 400
@@ -885,17 +1102,23 @@ def flash_route_check(ad, tin):
 
 
 def phase_tracker(cfg, images, depths, dev, gen):
-    """Returns phase 3's input and K4's launches on the flash-route forward."""
+    """Returns phase 3's input, K4's launches on the flash-route forward
+    and K2's launches per float32 forward (the float32 route's path)."""
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
     from batrack_tpu_torch.tracker import MDTrackerAdapter
 
     log("[tracker] full-width MDTracker forwards, kernels vs plain versions (TF32 off)")
     tin = tracker_input(images, depths, dev, gen)
+    f32_launches = []
     for dtype, damped in (("float32", False), ("float32", True), ("bfloat16", True)):
         ad = MDTrackerAdapter(dataclasses.replace(cfg.model, compute_dtype=dtype),
                               seed=0, device=dev)
         if damped:
             damp_flow_heads(ad.model)
+        before = fused_qkv_attention.launches
         kern, wit = tracker_diffs(ad, tin, gen)
+        if dtype == "float32":
+            f32_launches.append(fused_qkv_attention.launches - before)
         log(f"  {dtype}, flow heads {'x%g' % FLOW_HEAD_DAMPING if damped else 'random'}: "
             f"kernels vs plain {json.dumps(kern)}; witness, plain vs jittered plain "
             f"{json.dumps(wit)}")
@@ -908,7 +1131,8 @@ def phase_tracker(cfg, images, depths, dev, gen):
         if dtype == "bfloat16":
             flash_launches = flash_route_check(ad, tin)
         del ad
-    return tin, flash_launches
+    log(f"  K2 launches per float32 forward (attention_f32_kernel): {f32_launches}")
+    return tin, flash_launches, f32_launches[0]
 
 
 def mesh_tracker_check(cfg, tin, mesh, gen):
@@ -1339,7 +1563,7 @@ def kf_masked_k2(masks, dev, gen):
             **k2_times(qkv, mask)}
 
 
-def k2_times(qkv, mask=None):
+def k2_times(qkv, mask=None, heads=HEADS):
     """K2 on bf16 `qkv` with an optional key mask, timed beside its plain
     version, scaled_dot_product_attention on the split heads with the same
     boolean mask, and the bound of the logits the mask leaves."""
@@ -1347,18 +1571,18 @@ def k2_times(qkv, mask=None):
 
     from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
 
-    B, N, _ = qkv.shape
-    d = HIDDEN // HEADS
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // heads
     scale = d ** -0.5
     n_keys = N if mask is None else int(mask.sum())
-    ms = cuda_ms(lambda: fused_qkv_attention(qkv, HEADS, scale, mask), reps=30)
-    plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(qkv, HEADS, scale, mask), reps=3)
-    q, k, v = (x.contiguous() for x in qkv.view(B, N, 3, HEADS, d).permute(2, 0, 3, 1, 4))
+    ms = cuda_ms(lambda: fused_qkv_attention(qkv, heads, scale, mask), reps=30)
+    plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(qkv, heads, scale, mask), reps=3)
+    q, k, v = (x.contiguous() for x in qkv.view(B, N, 3, heads, d).permute(2, 0, 3, 1, 4))
     attn_mask = None if mask is None else mask[None, None, None, :]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                                                 scale=scale), reps=30)
-    nbytes = qkv.numel() * 2 + B * N * HIDDEN * 2 + (0 if mask is None else mask.numel())
-    bound_ms, bound_by, what = attention_bound(B * HEADS * N * n_keys, d, nbytes)
+    nbytes = qkv.numel() * 2 + B * N * C3 // 3 * 2 + (0 if mask is None else mask.numel())
+    bound_ms, bound_by, what = attention_bound(B * heads * N * n_keys, d, nbytes)
     log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms (SDPA"
         f"{'' if mask is None else ', same mask'}) {library_ms:.4f}  bound_ms {bound_ms:.4f} "
         f"({bound_by}: {what})")
@@ -3367,6 +3591,106 @@ def main_ranks() -> int:
 
 
 # the kernels' names in ptxas's report (mangled; the first match names it)
+# phase 14: davis_demo with model.num_heads 6 (hidden 384 over 6 heads: head
+# dim 64, the same width and FLOPs), the JAX package's free ModelConfig field
+WIDE_HEADS = 6
+WIDE_FRAMES, WIDE_STEADY_FROM, WIDE_STAGE_FROM = 24, 16, 20
+
+
+def phase_head_dim(images, depths, dev, main_fps, smi):
+    """Phase 14: BATrack + MDTrackerAdapter at davis_demo with
+    model.num_heads = WIDE_HEADS for WIDE_FRAMES frames, as phase 4 drives
+    it. The counters are set to 0 just before and read just after: K2 must
+    launch 24 times per append, every time at head dim 64 (its build
+    libfused_qkv_attention_d64.so), K1 4 times, the off-path kernels never.
+    The first append's K1 and K2 launches are held against the plain
+    versions; frames/s (frames 16-19) and the synchronised stage ms (frames
+    20-23) are printed beside phase 4's frames/s and `smi`, the card's name
+    and power limit, and K2 is timed on the first append's input."""
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention
+    from batrack_tpu_torch.ops.corr_kernel import corr_sample
+    from batrack_tpu_torch.slam import BATrack
+    from batrack_tpu_torch.tracker import MDTrackerAdapter, blocks
+    from batrack_tpu_torch.utils.config import Config
+    from batrack_tpu_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    cfg.model = dataclasses.replace(cfg.model, num_heads=WIDE_HEADS)
+    d = cfg.model.hidden_size // cfg.model.num_heads
+    s = cfg.slam
+    log(f"[head dim] davis_demo with model.num_heads {WIDE_HEADS} (hidden "
+        f"{cfg.model.hidden_size}, head dim {d}), {HT}x{WD}, {cfg.model.compute_dtype}, "
+        f"{WIDE_FRAMES} frames")
+    slam = BATrack(cfg, HT, WD, seed=0, device=dev)
+    slam.tracker = MDTrackerAdapter(
+        cfg.model, seed=0, device=dev,
+        backward_tracking=s.backward_tracking and s.S_slam > cfg.model.S)
+    _, k1_per, k2_per = launches_per_append(cfg)
+    dims = []
+    attend = blocks.fused_qkv_attention
+
+    def recording(qkv, heads, scale, key_mask=None, kv=None):
+        dims.append(qkv.shape[-1] // 3 // heads)
+        return attend(qkv, heads, scale, key_mask, kv)
+
+    corr_sample.launches = fused_qkv_attention.launches = 0
+    zero_off_path()
+    with patched(blocks, "fused_qkv_attention", recording), \
+            first_append_checks(k1_per, k2_per) as checks:
+        for t in range(WIDE_STAGE_FROM):
+            if t == WIDE_STEADY_FROM:
+                torch.cuda.synchronize()
+                t_steady = time.perf_counter()
+            slam(t, images[t], depths[t], INTR)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        slam.timer = StageTimer(enabled=True, sync=True)
+        for t in range(WIDE_STAGE_FROM, WIDE_FRAMES):
+            slam(t, images[t], depths[t], INTR)
+        torch.cuda.synchronize()
+    launches = {"corr_sample": corr_sample.launches,
+                "fused_qkv_attention": fused_qkv_attention.launches, **off_path_launches()}
+    appends = slam.append_count
+    stage_ms = {k: round(v, 3) for k, v in slam.timer.ms_per_call().items()}
+    fps = (WIDE_STAGE_FROM - WIDE_STEADY_FROM) / (t_end - t_steady)
+    log(f"  launches {launches} over {appends} appends; K2 head dims {sorted(set(dims))}")
+    log(f"  frames/s {fps:.3f} (frames {WIDE_STEADY_FROM}-{WIDE_STAGE_FROM - 1}; phase 4 at 8 "
+        f"heads {main_fps:.3f}); stage ms per call (synchronised, frames {WIDE_STAGE_FROM}-"
+        f"{WIDE_FRAMES - 1}): {json.dumps(stage_ms)}; on {smi}")
+    if (launches["fused_qkv_attention"] != k2_per * appends
+            or launches["corr_sample"] != k1_per * appends or not appends):
+        raise AssertionError(f"K1 and K2 launched {launches} over {appends} appends, not "
+                             f"{k1_per} and {k2_per} per append")
+    if len(dims) != launches["fused_qkv_attention"] or set(dims) != {d}:
+        raise AssertionError(f"K2 ran at head dims {sorted(set(dims))} in {len(dims)} calls, "
+                             f"not {d} in every one of its {launches['fused_qkv_attention']}")
+    k1_err = max(checks["k1"])
+    check(f"K1 on the first append at {WIDE_HEADS} heads, {len(checks['k1'])} launches, "
+          "vs plain", k1_err, TOL["k1"])
+    k2_err, k2_tol, k2_shape = max(checks["k2"], key=lambda c: c[0] / c[1])
+    check(f"K2 at head dim {d} on the first append, {len(checks['k2'])} launches at qkv "
+          f"{k2_shape}, bf16 vs plain (worst against its limit)", k2_err, k2_tol)
+    if len(checks["k1"]) != k1_per or len(checks["k2"]) != k2_per:
+        raise AssertionError(f"checked {len(checks['k1'])} K1 and {len(checks['k2'])} K2 "
+                             "launches on the first append")
+    poses, _ = slam.terminate()
+    if poses.shape != (WIDE_FRAMES, 7) or not np.isfinite(poses).all():
+        raise AssertionError(f"trajectory {poses.shape} not finite")
+    qkv, mask = checks["inputs"]["k2"]
+    log(f"  K2 at head dim {d} on the first append's input {tuple(qkv.shape)}:")
+    times = k2_times(qkv, mask, heads=WIDE_HEADS)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 14: {seconds:.1f} s")
+    return {"launches": launches, "appends": appends, "head_dims": sorted(set(dims)),
+            "frames_per_s": fps, "stage_ms": stage_ms,
+            "k1_first_append": {"max_abs_err": k1_err, "launches_checked": len(checks["k1"])},
+            "k2_first_append": {"max_abs_err": k2_err, "tolerance": k2_tol,
+                                "launches_checked": len(checks["k2"]), "shape": list(k2_shape),
+                                **times},
+            "seconds": seconds}
+
+
 KERNEL_NAMES = {"attention_bf16_wgmma_kernel": "attention_bf16_wgmma_kernel",
                 "attention_f32_kernel": "attention_f32_kernel",
                 "corr_sample_kernelILi3ELb0E": "corr_sample_kernel<3 terms, bf16>",
@@ -3412,7 +3736,7 @@ def main() -> int:
         f"{max_sm[0] if max_sm else 'not read'} (SFU_OPS_S assumes 132 SMs at 1980 MHz)")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["corr_sample", "fused_qkv_attention"])
+    logs = cuda_build.build(["corr_sample", "fused_qkv_attention", *width_builds()])
     log(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (up to date)'}")
     for name, text in logs.items():
         fn = "?"
@@ -3433,10 +3757,14 @@ def main() -> int:
     k3 = phase_k3(dev, gen)
     k4 = phase_k4(dev, gen)
     phase_edges(dev, gen)
+    t_widths = time.perf_counter()
+    widths = phase_attention_widths(dev, gen) + phase_k1_widths(dev, gen)
+    log(f"[widths] {time.perf_counter() - t_widths:.1f} s for {len(widths)} kernels at other "
+        "widths")
 
     cfg = Config()  # davis_demo defaults
     images, depths, poses_gt = make_scene(FRAMES + 2, HT, WD, INTR)
-    tin, flash_launches = phase_tracker(cfg, images, depths, dev, gen)
+    tin, flash_launches, f32_launches = phase_tracker(cfg, images, depths, dev, gen)
     launches, fps, poses_at_stage = phase_slam(cfg, images, depths, dev, args.profile)
     ba = phase_ba(cfg, images, depths, dev)
     mesh_launches = phase_mesh(cfg, images, depths, dev, fps, poses_at_stage, ba, tin, gen)
@@ -3457,7 +3785,9 @@ def main() -> int:
     log(f"[measurements] {json.dumps(measurements)}")
     scaling = phase_scaling(cfg)
     log(f"[scaling] {json.dumps(scaling)}")
-    log(f"[time] phases 2-13: {time.perf_counter() - t_phases:.1f} s after the build")
+    wide = phase_head_dim(images, depths, dev, fps, smi)
+    log(f"[head dim] {json.dumps(wide)}")
+    log(f"[time] phases 2-14: {time.perf_counter() - t_phases:.1f} s after the build")
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]
@@ -3486,7 +3816,18 @@ def main() -> int:
     for entry, key in ((k1, "k1"), (k2, "k2")):
         entry["launches_sintel_path"] = journeys["sintel"]["launches"][entry["name"]]
         entry["sintel_path"] = journeys["sintel"][key]
-    print(json.dumps({"kernels": [k1, k1_mxu, k1_int8, k2, k2kv, k3, k4]}))
+    # the other widths: launched only by phase 2's comparisons, except K2
+    # at head dim 64, which phase 14's path runs (at 6 heads)
+    for entry in widths:
+        entry["launches"] = 0
+        if entry["name"] == "fused_qkv_attention_d64":
+            entry["launches"] = wide["launches"]["fused_qkv_attention"]
+            entry["davis_heads6_path"] = wide["k2_first_append"]
+        if entry["name"] == "fused_qkv_attention_f32":
+            # not on a main path; phase 3's float32 forwards launch it (K2
+            # packed at d 48, the width and route of this entry)
+            entry["launches_per_f32_forward"] = f32_launches
+    print(json.dumps({"kernels": [k1, k1_mxu, k1_int8, k2, k2kv, k3, k4, *widths]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

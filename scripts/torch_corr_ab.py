@@ -88,17 +88,13 @@ TOL = 1e-4
 # batrack_tpu_torch/, old, new)
 LAYOUTS = {
     "one_block": [
-        ("csrc/corr_sample.cu", "<<<(unsigned)blocks, kThreads, p.region + kExtraBytes,",
-         "<<<(unsigned)blocks, kThreads, kInt8 ? 120000 : p.region + kExtraBytes,"),
+        ("csrc/corr_sample.cu", "p.region + kExtraBytes,",
+         "kInt8 ? 120000 : p.region + kExtraBytes,"),
         ("csrc/corr_sample.cu", "const size_t smem = (size_t)p.region + kExtraBytes;",
          "const size_t smem = p.int8 ? 120000 : (size_t)p.region + kExtraBytes;"),
     ],
     "ring24": [
-        ("csrc/corr_sample.cu", "constexpr int kSlotsPerWarp = 2;",
-         "constexpr int kSlotsPerWarp = 4;"),
-        ("csrc/corr_sample.cu", "constexpr int kExtraBytes = 3072;",
-         "constexpr int kExtraBytes = 3584;"),
-        ("ops/corr_kernel.py", "SMEM_RESERVE = 3072", "SMEM_RESERVE = 3584"),
+        ("csrc/corr_sample.cu", "constexpr int kMaxSlots = 12;", "constexpr int kMaxSlots = 24;"),
     ],
 }
 

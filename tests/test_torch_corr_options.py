@@ -82,3 +82,23 @@ def test_int8_maps_refuse_the_mxu_contraction(rng):
         corr_sample(pack_pyramid(tpyr), t(tg), t(xy), R, contract="tensor")
     with pytest.raises(ValueError, match="fmap_dtype"):
         pack_pyramid(tpyr, "fp8")
+
+
+@pytest.mark.parametrize("radius,channels,fmap_dtype", [(4, 64, "int8"), (1, 256, "bf16")])
+def test_corr_plain_matches_pallas_interpret_at_other_widths(rng, radius, channels, fmap_dtype):
+    """K1's plain version at widths beside the tracker's (radius 4 on 64
+    channels, radius 1 on 256; the kernel is built per width) against the
+    Pallas kernel with the same radius and channel count, on the same float32
+    levels, 1e-5 as above."""
+    fm = rng.normal(size=(S, channels, H, W)).astype(np.float32)
+    tg = rng.normal(size=(8, S, channels)).astype(np.float32)
+    xy = np.stack([rng.uniform(-8, W + 8, (S, 8)), rng.uniform(-8, H + 8, (S, 8))],
+                  -1).astype(np.float32)
+    jpyr = jcorr.build_pyramid(j(fm), 2)
+    ref = jnp.concatenate(corr_sample_levels_pallas(
+        jpyr, j(tg), j(xy), radius, block_n=8, group=8, interpret=True,
+        fmap_dtype=fmap_dtype), axis=-1)
+    pyr = pack_pyramid([t(np.asarray(p)) for p in jpyr], fmap_dtype)
+    out = corr_sample(pyr, t(tg), t(xy), radius)  # CPU tensor -> plain version
+    assert out.shape == (8, S, 2 * (2 * radius + 1) ** 2)
+    assert_close(out, ref, atol=1e-5)

@@ -18,17 +18,23 @@ under the same limits. K1's int8 and mxu variants (instantiations of K1's
 kernel) are held to 1e-4 like K1 (exact products, sums in another order;
 the three-term bf16 split of the target, which K1 and its int8 variant
 use, leaves about 5e-7 of the terms' size), K4 (split-head attention on
-the same kernel) to K2's limits.
+the same kernel) to K2's limits. The card tests run every kernel at every
+width its wrapper takes: K2-K4 at head dims 8 to 128 in steps of 8, K1's
+three routes at each radius 1-4 with each C of 64, 128 and 256; each width
+is its own build, all built together before the first test (`cuda`
+fixture).
 """
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from batrack_tpu_torch.ops import corr
+from batrack_tpu_torch.ops import corr, cuda_build
 from batrack_tpu_torch.ops.attention import (
+    KERNEL_HEAD_DIMS,
     flash_attention,
     flash_attention_plain,
     fused_qkv_attention,
@@ -38,6 +44,9 @@ from batrack_tpu_torch.ops.attention import (
     vmem_attention_plain,
 )
 from batrack_tpu_torch.ops.corr_kernel import (
+    KERNEL_CHANNELS,
+    KERNEL_RADII,
+    _library,
     corr_sample,
     corr_sample_plain,
     pack_pyramid,
@@ -46,17 +55,45 @@ from batrack_tpu_torch.ops.corr_kernel import (
 )
 from batrack_tpu_torch.utils.config import full_fp32
 
+# every width the wrappers take on the card: head dims 8 to 128 in steps of
+# 8 (those with d % 16 == 8 have a last 16-lane box half of zeros), and each
+# (radius, C) of K1
+HEAD_DIMS = list(KERNEL_HEAD_DIMS)
+K1_WIDTHS = [(r, c) for c in KERNEL_CHANNELS for r in KERNEL_RADII]
+# K1's shared memory beside a resident map (kExtraBytes) in the build of
+# each radius; the channel count leaves it unchanged
+K1_RESERVE = {1: 2048, 2: 3072, 3: 3072, 4: 4096}
+K1_ROUTES = [("bf16", "vpu", "launches"), ("bf16", "mxu", "mxu_launches"),
+             ("int8", "vpu", "int8_launches")]
+
 
 def bf16_tol(ref: torch.Tensor) -> float:
     """Two bf16 ulps (8 significand bits) of the largest magnitude in ref."""
     return 2.0 * 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
 
 
+@pytest.fixture(scope="module")
+def kernels_built():
+    """Every build the card tests use, one nvcc each, all started together
+    (a width's first call would otherwise build it alone)."""
+    if torch.cuda.is_available():
+        cuda_build.build([cuda_build.spec("fused_qkv_attention", HEAD_DIM=d) for d in HEAD_DIMS]
+                         + [cuda_build.spec("corr_sample", RADIUS=r, C=c) for r, c in K1_WIDTHS])
+
+
 @pytest.fixture
-def cuda():
+def cuda(kernels_built):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_builds(monkeypatch):
+    """Fail any kernel build: a refused width must raise before one."""
+    def refuse(items):
+        raise AssertionError(f"a build was started for {list(items)}")
+    monkeypatch.setattr(cuda_build, "build", refuse)
 
 
 def _k1_inputs(rng, S, C, N, H, W, margin=8.0):
@@ -159,23 +196,51 @@ def test_flash_attention_plain_is_the_packed_layout(rng, masked):
     assert torch.equal(flash_attention_plain(q, k, v, 0.3, mask), out)
 
 
-@pytest.mark.parametrize("S,H,W,L,resident", [
-    (12, 96, 128, 4, (False, False, True, True)),  # davis_demo: 24x32 and 12x16 stay
-    (3, 24, 32, 4, (True, True, True, True)),      # the kernel tests' small maps
-    (2, 9, 13, 2, (True, True)),
-    (2, 64, 80, 3, (False, False, True)),          # both kinds in one launch
-    (1, 8, 300, 2, (False, True)),                 # 300 columns: wider than one TMA box
+@pytest.mark.parametrize("S,H,W,L,resident,C,radius", [
+    pytest.param(12, 96, 128, 4, (False, False, True, True), 128, 3,  # davis_demo: 24x32
+                 id="12-96-128-4-resident0"),                         # and 12x16 stay
+    pytest.param(3, 24, 32, 4, (True, True, True, True), 128, 3,  # the kernel tests' small maps
+                 id="3-24-32-4-resident1"),
+    pytest.param(2, 9, 13, 2, (True, True), 128, 3, id="2-9-13-2-resident2"),
+    pytest.param(2, 64, 80, 3, (False, False, True), 128, 3,  # both kinds in one launch
+                 id="2-64-80-3-resident3"),
+    pytest.param(1, 8, 300, 2, (False, True), 128, 3,  # 300 columns: wider than one TMA box
+                 id="1-8-300-2-resident4"),
+    # other widths: C 64 halves a map, C 256 doubles it (davis_demo's level
+    # 2 no longer fits); radius 4 reserves 1 KB more than radius 3, so a
+    # 28x32 level (224 KB at C 128) is resident at radius 3 only
+    pytest.param(12, 96, 128, 4, (False, False, True, True), 64, 3, id="davis-c64"),
+    pytest.param(12, 96, 128, 4, (False, False, False, True), 256, 3, id="davis-c256"),
+    pytest.param(2, 56, 64, 2, (False, True), 128, 3, id="56x64-r3"),
+    pytest.param(2, 56, 64, 2, (False, False), 128, 4, id="56x64-r4"),
 ])
-def test_corr_kernel_residency(S, H, W, L, resident):
-    """Which levels K1 keeps in shared memory, from the pyramid's shapes:
-    one frame's map must fit beside the kernel's reserve (232,448 bytes in
-    all) and measure at most 256 x 256; the rest are streamed."""
-    fm = torch.zeros((S, 128, H, W))
+def test_corr_kernel_residency(S, H, W, L, resident, C, radius):
+    """Which levels K1 keeps in shared memory, from the pyramid's shapes,
+    channels and radius: one frame's map must fit beside the kernel's
+    reserve for the radius (232,448 bytes in all) and measure at most
+    256 x 256; the rest are streamed."""
+    fm = torch.zeros((S, C, H, W))
     pyr = pack_pyramid(corr.build_pyramid(fm, L))
-    assert resident_levels(pyr.shapes) == resident
+    assert resident_levels(pyr.shapes, C, 2, reserve=K1_RESERVE[radius]) == resident
     assert resident_map_bytes(24, 32) == 196608  # davis_demo's level 2
     assert resident_map_bytes(48, 64) + 3072 > 232448  # its level 1 does not fit
     assert resident_map_bytes(9, 13) == 2 * 15 * 1024  # halves rounded up to 1024 bytes
+    assert resident_map_bytes(9, 13, C) == C // 64 * 15 * 1024  # C/64 sections of 64 channels
+
+
+@pytest.mark.parametrize("radius,reserve", [(1, 2048), (2, 3072), (3, 3072), (4, 4096)])
+def test_corr_kernel_reserve_follows_the_radius(radius, reserve):
+    """The shared memory K1 keeps beside a resident map (kExtraBytes, which
+    each build exports; test_corr_kernel_reserve_of_each_build_on_gpu holds
+    the builds to K1_RESERVE): six warps' taps padded to 16-row tiles (16,
+    48, 64, 112 rows for radius 1-4), the zero row, 25 barriers and 1 KB of
+    slack, rounded up to 1 KB. A 28x32 bf16 map of 128 channels (229,376
+    bytes) fits beside the reserve of radius 1-3 and not beside radius 4's."""
+    assert K1_RESERVE[radius] == reserve
+    need = 1024 + 6 * -(-(2 * radius + 2) ** 2 // 16) * 16 * 4 + 128 + 25 * 8
+    assert reserve % 1024 == 0 and 0 <= reserve - need < 1024
+    assert resident_map_bytes(28, 32) == 229376
+    assert resident_levels([(28, 32)], reserve=reserve) == (radius < 4,)
 
 
 def test_corr_kernel_int8_residency():
@@ -184,19 +249,27 @@ def test_corr_kernel_int8_residency():
     is still streamed; a level that fits only at one byte per channel is
     resident for int8 maps alone."""
     davis = [(96, 128), (48, 64), (24, 32), (12, 16)]
-    assert resident_levels(davis, 128, 1) == (False, False, True, True)
+    assert resident_levels(davis, 128, 1, reserve=3072) == (False, False, True, True)
     assert resident_map_bytes(24, 32, 128, 1) == 98304
     assert resident_map_bytes(48, 64, 128, 1) == 393216
     assert resident_map_bytes(9, 13, 128, 1) == 15 * 1024
-    assert resident_levels([(32, 40)], 128, 1) == (True,)
-    assert resident_levels([(32, 40)], 128, 2) == (False,)
+    assert resident_levels([(32, 40)], 128, 1, reserve=3072) == (True,)
+    assert resident_levels([(32, 40)], 128, 2, reserve=3072) == (False,)
+    # C 64: half of each 128-byte row is zero fill, so a map takes what it
+    # takes at C 128; C 256: two sections
+    assert resident_map_bytes(24, 32, 64, 1) == 98304
+    assert resident_map_bytes(24, 32, 256, 1) == 196608
+    assert resident_levels(davis, 64, 1, reserve=3072) == (False, False, True, True)
+    assert resident_levels(davis, 256, 1, reserve=3072) == (False, False, True, True)
+    assert resident_levels(davis, 256, 1, reserve=K1_RESERVE[4]) == (False, False, True, True)
 
 
 def test_flash_attention_direct_route_strides():
     """K4 reads q, k and v in place when they are head splits of packed rows
-    (strides (N*R, 48, R, 1), R % 8 == 0, 16-byte bases): the tracker's
-    views of one qkv. Contiguous (B, h, N, 48) tensors, rows that are not a
-    multiple of 8 elements and misaligned bases take the folded route."""
+    (strides (N*R, d, R, 1), d a head dim the kernel takes, R % 8 == 0,
+    16-byte bases): the tracker's views of one qkv. Contiguous (B, h, N, d)
+    tensors, rows that are not a multiple of 8 elements and misaligned
+    bases take the folded route."""
     B, N, h, d = 2, 19, 3, 48
     qkv = torch.zeros((B, N, 3 * h * d), dtype=torch.bfloat16)
     q, k, v = qkv.view(B, N, 3, h, d).permute(2, 0, 3, 1, 4)
@@ -208,7 +281,62 @@ def test_flash_attention_direct_route_strides():
     assert split_row_stride(odd.view(B, N, 3, h, d).permute(2, 0, 3, 1, 4)[0]) is None
     shifted = torch.zeros((B, N, 3 * h * d + 8), dtype=torch.bfloat16)[..., 1:3 * h * d + 1]
     assert split_row_stride(shifted.reshape(B, N, 3, h, d).permute(2, 0, 3, 1, 4)[0]) is None
-    assert split_row_stride(q[..., :32]) is None  # head dim other than the kernel's 48
+    assert split_row_stride(q[..., :32]) is None  # a lane slice of each head, not a split
+    for dh, R in ((64, 3 * h * 64), (8, 3 * h * 8), (36, None), (136, None)):
+        # head dims the kernel takes are read in place; 36 and 136 are not taken
+        views = torch.zeros((B, N, 3 * h * dh)).view(B, N, 3, h, dh).permute(2, 0, 3, 1, 4)
+        assert split_row_stride(views[0]) == R
+
+
+def test_cuda_build_command_for_a_width(monkeypatch, tmp_path):
+    """A width's build carries its -D flags and writes its own library;
+    the default widths (given or left out) are the default build, with no
+    flags and the source's own name. build() starts every stale build at
+    once; nvcc is never called here."""
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    d64 = cuda_build.spec("fused_qkv_attention", HEAD_DIM=64)
+    r4 = cuda_build.spec("corr_sample", RADIUS=4)
+    assert cuda_build.lib_path(d64).name == "libfused_qkv_attention_d64.so"
+    assert cuda_build.lib_path(r4).name == "libcorr_sample_r4_c128.so"
+    assert cuda_build.lib_path(cuda_build.spec("corr_sample", C=256)).name == \
+        "libcorr_sample_r3_c256.so"
+    cmd = cuda_build.command(d64, tmp_path / "x.so")
+    assert cmd[0] == "nvcc" and "-DBT_HEAD_DIM=64" in cmd and cmd[-1].endswith(
+        "csrc/fused_qkv_attention.cu")
+    assert cmd[cmd.index("-o") + 1] == str(tmp_path / "x.so")
+    assert {"-DBT_CORR_RADIUS=4", "-DBT_CORR_C=128"} <= set(cuda_build.command(r4, tmp_path))
+    for default in (cuda_build.spec("fused_qkv_attention"),
+                    cuda_build.spec("fused_qkv_attention", HEAD_DIM=48),
+                    cuda_build.spec("corr_sample", RADIUS=3, C=128)):
+        assert default[1] == ()
+        assert not any(a.startswith("-D") for a in cuda_build.command(default, tmp_path))
+        assert cuda_build.lib_path(default).name == f"lib{default[0]}.so"
+    with pytest.raises(ValueError, match="HEAD_DIM"):
+        cuda_build.spec("corr_sample", HEAD_DIM=64)
+
+    started = []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            self.out = Path(cmd[cmd.index("-o") + 1])
+
+        def communicate(self):
+            assert len(started) == 2  # both builds started before either is read
+            self.out.write_bytes(b"")
+            return ("ptxas info",)
+
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", Proc)
+    logs = cuda_build.build([d64, ("corr_sample", (("RADIUS", 4),)), d64])
+    assert sorted(logs) == ["corr_sample_r4_c128", "fused_qkv_attention_d64"]
+    assert {"-DBT_HEAD_DIM=64"} <= set(started[0]) and "-DBT_CORR_RADIUS=4" in started[1]
+    assert (tmp_path / "libfused_qkv_attention_d64.so").exists()
+    assert (tmp_path / "libcorr_sample_r4_c128.so").exists()
+    assert cuda_build.build([d64]) == {}  # up to date: nothing started
+    assert len(started) == 2
 
 
 def test_attention_kv_source_of_wrong_width_raises(rng):
@@ -233,6 +361,8 @@ def key_mask(kind, Nk: int, rng):
 
 # ---------------------------------------------------------------- on the card
 @pytest.mark.gpu
+@pytest.mark.parametrize("radius,C", K1_WIDTHS)
+@pytest.mark.parametrize("fmap_dtype,contract,counter", K1_ROUTES)
 @pytest.mark.parametrize("L,shape,margin", [
     (4, (3, 70, 24, 32), 8.0),    # every level resident
     (2, (2, 33, 9, 13), 8.0),
@@ -241,24 +371,37 @@ def key_mask(kind, Nk: int, rng):
     (3, (2, 50, 64, 80), 60.0),   # the same for streamed boxes: negative and far-out origins
     (3, (3, 301, 64, 80), 8.0),   # ragged last chunks: 301 tracks, 903 windows per level
 ])
-def test_corr_kernel_matches_plain_on_gpu(rng, cuda, L, shape, margin):
-    """K1 == its plain version on the same bf16 maps (1e-4), with levels
-    kept in shared memory and levels streamed (resident_levels), windows
-    far outside the map, and track counts that leave the last block's chunk
-    ragged; only the main kernel's counter moves."""
+def test_corr_kernel_matches_plain_on_gpu(rng, cuda, L, shape, margin, fmap_dtype, contract,
+                                          counter, radius, C):
+    """K1 == its plain version on the same maps (1e-4), on each of its three
+    routes and at each width it takes, with levels kept in shared memory and
+    levels streamed (resident_levels), windows far outside the map, and
+    track counts that leave the last block's chunk ragged; only the route's
+    own counter moves."""
     S, N, H, W = shape
-    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=128, N=N, H=H, W=W, margin=margin))
-    pyr = pack_pyramid(corr.build_pyramid(fm, L))
-    counters = ("launches", "mxu_launches", "int8_launches")
+    fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=S, C=C, N=N, H=H, W=W, margin=margin))
+    pyr = pack_pyramid(corr.build_pyramid(fm, L), fmap_dtype)
+    counters = [c for _, _, c in K1_ROUTES]
     before = {c: getattr(corr_sample, c) for c in counters}
-    out = corr_sample(pyr, tg, xy, 3)
+    out = corr_sample(pyr, tg, xy, radius, contract=contract)
     torch.cuda.synchronize()
     assert {c: getattr(corr_sample, c) - before[c] for c in counters} == {
-        "launches": 1, "mxu_launches": 0, "int8_launches": 0}
+        c: int(c == counter) for c in counters}
+    assert out.shape == (N, S, L * (2 * radius + 1) ** 2)
     with full_fp32():
-        torch.testing.assert_close(out, corr_sample_plain(pyr, tg, xy, 3), atol=1e-4, rtol=0)
+        ref = corr_sample_plain(pyr, tg, xy, radius, contract=contract)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     # a second call reuses the pyramid's tensor maps and gives the same output
-    assert torch.equal(corr_sample(pyr, tg, xy, 3), out)
+    assert torch.equal(corr_sample(pyr, tg, xy, radius, contract=contract), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius,C", K1_WIDTHS)
+def test_corr_kernel_reserve_of_each_build_on_gpu(cuda, radius, C):
+    """Each (radius, C) build exports the reserve that the residency choice
+    reads (corr_extra_bytes), K1_RESERVE's for its radius."""
+    assert _library(radius, C).corr_extra_bytes() == K1_RESERVE[radius]
+    assert resident_levels([(28, 32)], 128, 2, radius) == (radius < 4,)
 
 
 @pytest.mark.gpu
@@ -282,24 +425,40 @@ def test_corr_kernel_keeps_float32_targets_on_gpu(rng, cuda, fmap_dtype):
 
 
 @pytest.mark.gpu
-def test_corr_kernel_raises_on_what_it_does_not_take(rng, cuda):
-    """No fallback: a radius other than 3 or a non-bf16 map raises on the card."""
+def test_corr_kernel_raises_on_what_it_does_not_take(rng, cuda, no_builds):
+    """No fallback: a radius outside 1-4, a channel count other than 64,
+    128 or 256, more than 8 levels or a non-bf16, non-int8 map raises on the
+    card, before any build or launch."""
     fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=2, C=128, N=5, H=16, W=24))
     pyr = pack_pyramid(corr.build_pyramid(fm, 2))
-    with pytest.raises(ValueError, match="radius"):
-        corr_sample(pyr, tg, xy, 2)
+    counters = [c for _, _, c in K1_ROUTES]
+    before = {c: getattr(corr_sample, c) for c in counters}
+    for radius in (0, 5, 7):
+        with pytest.raises(ValueError, match="radius 1 to 4"):
+            corr_sample(pyr, tg, xy, radius)
     with pytest.raises(TypeError):
         corr_sample(pyr._replace(flat=pyr.flat.float()), tg, xy, 3)
+    for C in (32, 96, 192, 512):
+        fm_c, tg_c, xy_c = (x.to(cuda) for x in _k1_inputs(rng, S=2, C=C, N=5, H=16, W=24))
+        for fmap_dtype in ("bf16", "int8"):
+            pyr_c = pack_pyramid(corr.build_pyramid(fm_c, 2), fmap_dtype)
+            with pytest.raises(ValueError, match=f"C {C}"):
+                corr_sample(pyr_c, tg_c, xy_c, 3)
+    pyr9 = pack_pyramid(corr.build_pyramid(torch.randn(2, 128, 512, 512, device=cuda), 9))
+    with pytest.raises(ValueError, match="9 levels"):
+        corr_sample(pyr9, tg, xy, 3)
+    assert {c: getattr(corr_sample, c) for c in counters} == before
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", [None, "random", "tiles"])
 @pytest.mark.parametrize("N,H", [(333, 8), (70, 2)])
-def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, mask_kind, N, H):
-    """K2 packed; N = 333 and 70 leave the bf16 kernel's 128-query and
-    128-key tiles ragged."""
-    B, d = 3, 48  # the kernel's one head dim
+def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, mask_kind, N, H, d):
+    """K2 packed at each head dim; N = 333 and 70 leave the bf16 kernel's
+    128-query and 128-key tiles ragged."""
+    B = 3
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * d)).astype(np.float32)).to(cuda, dtype)
     mask = key_mask(mask_kind, N, rng)
     mask = None if mask is None else mask.to(cuda)
@@ -315,15 +474,16 @@ def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, mask_kind, N, H
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("source", ["slim", "packed"])
 @pytest.mark.parametrize("mask_kind", [None, "random", "tiles"])
 @pytest.mark.parametrize("Nk", [333, 37])
-def test_attention_kv_kernel_matches_plain_on_gpu(rng, cuda, dtype, source, mask_kind, Nk):
-    """K2 with a separate key/value source: queries (3, 150) against
-    Nk = 333 keys (ragged key tiles) or 37 (fewer than one key tile) of a
-    slim or packed source."""
-    B, N, H, d = 3, 150, 8, 48
+def test_attention_kv_kernel_matches_plain_on_gpu(rng, cuda, dtype, source, mask_kind, Nk, d):
+    """K2 with a separate key/value source at each head dim: queries
+    (3, 150) against Nk = 333 keys (ragged key tiles) or 37 (fewer than one
+    key tile) of a slim or packed source."""
+    B, N, H = 3, 150, 8
     C = H * d
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(cuda, dtype)
     width = (2 if source == "slim" else 3) * C
@@ -343,24 +503,46 @@ def test_attention_kv_kernel_matches_plain_on_gpu(rng, cuda, dtype, source, mask
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", [1, 37, 129, 200, 333])
-def test_vmem_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, N):
-    """K3 on (B, N, 48): one key, fewer than one 128-key tile, one key past
+def test_vmem_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, N, d):
+    """K3 on (B, N, d): one key, fewer than one 128-key tile, one key past
     a tile, ragged second and third tiles."""
-    q, k, v = (torch.from_numpy(rng.normal(size=(5, N, 48)).astype(np.float32)).to(cuda, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=(5, N, d)).astype(np.float32)).to(cuda, dtype)
                for _ in range(3))
     before = vmem_attention.launches
-    out = vmem_attention(q, k, v, 48 ** -0.5)
+    out = vmem_attention(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
     assert vmem_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     with full_fp32():
-        ref = vmem_attention_plain(q, k, v, 48 ** -0.5)
+        ref = vmem_attention_plain(q, k, v, d ** -0.5)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
-    with pytest.raises(ValueError, match="48"):
-        vmem_attention(q[..., :32], k[..., :32], v[..., :32], 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [4, 12, 36, 132, 136, 256])
+def test_attention_kernels_raise_on_other_head_dims_on_gpu(rng, cuda, no_builds, d):
+    """No fallback: K2 (packed and kv=), K3 and K4 (split views and
+    contiguous heads) raise ValueError on a head dim outside 8-128 or not a
+    multiple of 8, before any build or launch."""
+    B, N, H = 2, 40, 2
+    qkv = torch.randn(B, N, 3 * H * d, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    calls = [(fused_qkv_attention, (qkv, H, 0.1)),
+             (lambda *a: fused_qkv_attention(*a, kv=qkv[..., H * d:].contiguous()),
+              (qkv, H, 0.1)),
+             (vmem_attention, (q[0], k[0], v[0], 0.1)),
+             (flash_attention, (q, k, v, 0.1)),
+             (flash_attention, (q.contiguous(), k.contiguous(), v.contiguous(), 0.1))]
+    counts = (fused_qkv_attention.launches, vmem_attention.launches, flash_attention.launches)
+    for fn, args in calls:
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            fn(*args)
+    assert (fused_qkv_attention.launches, vmem_attention.launches,
+            flash_attention.launches) == counts
 
 
 
@@ -402,30 +584,33 @@ def test_corr_kernel_options_match_plain_on_gpu(rng, cuda, fmap_dtype, contract,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmap_dtype,contract", [("bf16", "mxu"), ("int8", "vpu")])
-def test_corr_kernel_options_raise_on_other_radius_on_gpu(rng, cuda, fmap_dtype, contract):
-    """The variants run on K1's pipeline, which takes radius 3 only: radius
-    2 raises ValueError before any launch."""
+def test_corr_kernel_options_raise_on_other_radius_on_gpu(rng, cuda, no_builds, fmap_dtype,
+                                                          contract):
+    """The variants run on K1's pipeline, which takes radius 1 to 4: radius
+    5 raises ValueError before any build or launch."""
     fm, tg, xy = (x.to(cuda) for x in _k1_inputs(rng, S=2, C=128, N=5, H=16, W=24))
     pyr = pack_pyramid(corr.build_pyramid(fm, 2), fmap_dtype)
     counters = ("launches", "mxu_launches", "int8_launches")
     before = {c: getattr(corr_sample, c) for c in counters}
     with pytest.raises(ValueError, match="radius"):
-        corr_sample(pyr, tg, xy, 2, contract=contract)
+        corr_sample(pyr, tg, xy, 5, contract=contract)
     assert {c: getattr(corr_sample, c) for c in counters} == before
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("layout", ["split", "contiguous"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", [None, "random", "tiles"])
 @pytest.mark.parametrize("N,H", [(333, 8), (70, 2)])
-def test_flash_attention_kernel_matches_plain_on_gpu(rng, cuda, layout, dtype, mask_kind, N, H):
-    """K4 on split heads (3, H, N, 48) taken from a packed qkv, as the
+def test_flash_attention_kernel_matches_plain_on_gpu(rng, cuda, layout, dtype, mask_kind, N, H,
+                                                     d):
+    """K4 on split heads (3, H, N, d) taken from a packed qkv, as the
     tracker's split-head route gives them (read in place: the strided
-    counter moves), and on contiguous (3, H, N, 48) tensors (folded into one
-    head per batch row); N = 333 and 70 leave the bf16 kernel's 128-query
-    and 128-key tiles ragged."""
-    B, d = 3, 48
+    counter moves), and on contiguous (3, H, N, d) tensors (folded into one
+    head per batch row), at each head dim; N = 333 and 70 leave the bf16
+    kernel's 128-query and 128-key tiles ragged."""
+    B = 3
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * d)).astype(np.float32)).to(cuda, dtype)
     q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
     if layout == "contiguous":

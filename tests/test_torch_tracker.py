@@ -100,13 +100,20 @@ def test_attention_flash_route_matches_jax(rng, monkeypatch, masked):
     assert_close(out, ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_updateformer_matches_jax(rng, masked):
-    """UpdateFormer (time + space AttnBlocks); the port's space attention
-    goes through K2's plain version (kernel_threshold=1)."""
+@pytest.mark.parametrize("masked,num_heads", [
+    pytest.param(False, 4, id="False"),   # head dim 16
+    pytest.param(True, 4, id="True"),
+    pytest.param(False, 8, id="False-d8"),
+    pytest.param(True, 2, id="True-d32"),
+])
+def test_updateformer_matches_jax(rng, masked, num_heads):
+    """UpdateFormer (time + space AttnBlocks) at hidden 64 over 4, 8 or 2
+    heads (head dims 16, 8 and 32, as ModelConfig's hidden_size / num_heads
+    give them); the port's space attention goes through K2's plain version
+    (kernel_threshold=1)."""
     torch.manual_seed(1)
     uf = UpdateFormer(space_depth=2, time_depth=2, input_dim=40, hidden_size=64,
-                      num_heads=4, output_dim=11, use_kernel=True,
+                      num_heads=num_heads, output_dim=11, use_kernel=True,
                       kernel_threshold=1).eval()
     sd = {f"updateformer.{k}": v.numpy() for k, v in uf.state_dict().items()}
     from batrack_tpu.tracker.convert import _updateformer
@@ -116,7 +123,7 @@ def test_updateformer_matches_jax(rng, masked):
     with torch.no_grad():
         out = uf(t(x), None if mask is None else t(mask))
     ref = jblocks.UpdateFormer(space_depth=2, time_depth=2, input_dim=40, hidden_size=64,
-                               num_heads=4, output_dim=11).apply(
+                               num_heads=num_heads, output_dim=11).apply(
         {"params": params}, j(x), None if mask is None else j(mask))
     assert_close(out, ref, atol=1e-4)
 
