@@ -16,7 +16,8 @@
 // The output (B, N, C) has the heads merged. Heads are split and merged by
 // addressing inside the kernel, so no (B, h, N, hd) copy is ever made in
 // device memory. Keys where the optional key mask is 0 get the logit -1e30,
-// as on the TPU; logits, softmax and the output sums are float32.
+// as on the TPU; logits, softmax and the output sums are float32, in bf16
+// and in float32 alike.
 //
 // The head dim d is a compile-time constant, BT_HEAD_DIM (default 48, the
 // tracker's: hidden 384 over 8 heads). ops/cuda_build.py builds one library
@@ -67,10 +68,48 @@
 // bytes per key: 0.54 ms at the davis_demo shape (PERF.md), which no
 // davis_demo path runs (one window, no mask).
 //
-// float32 (parity runs): one query per thread with its q and output rows
-// in registers, 32-key tiles of K and V in shared memory as float32
-// (broadcast reads), on the float32 pipes. Its 2d registers of rows spill
-// at large d (256 floats a thread at d 128); it stays simple.
+// float32 (parity runs, compute_dtype "float32"): the same pipeline on
+// three-term bf16 products. On this card a float32-accurate product costs
+// the same on either tensor-core route, 3 TF32 products at 495 TFLOP/s or
+// the 6 bf16 products of term order <= 2 at 989, about 2.5x less than the
+// float32 pipes (67 TFLOP/s): at the davis_demo shape 637 GFLOP of bf16
+// products, 0.644 ms, beside 0.132 ms of exponentials and 0.053 ms of
+// float32 rows, so the products bound it. (TF32 wgmma takes only K-major
+// operands, so V would need a transpose by hand; bf16 has the transpose
+// bit and K2 already repacks P.) Two launches:
+//   split_terms_kernel, which replaces no TPU kernel (the TPU kernel reads
+//   float32 rows straight into its matrix unit): each float32 row of q, k
+//   and v, read in place through its base pointer and row stride, becomes
+//   three bf16 terms t1 = bf16(x), t2 = bf16(x - t1), t3 = bf16(x - t1 -
+//   t2), rounded to nearest even as csrc/corr_sample.cu splits K1's target,
+//   in a (3, rows, lanes) tensor: 4 bytes read and 6 written per element,
+//   bound by the bytes;
+//   attention_f32_wgmma_kernel, the bf16 kernel's structure on the terms:
+//   the term is an outer batch axis of the same tensor maps (3B batch
+//   rows), Q's three terms stay in shared memory and each ring stage holds
+//   the three term boxes of K and of V. QK^T sums the six wgmma products of
+//   the term pairs (i, j) with i + j <= 2 into one float32 accumulator,
+//   smallest first, so that no large partial sum swallows a small product;
+//   after the online softmax the float32 probabilities are split into three
+//   bf16 terms in registers (the bf16 kernel's repack of P, three times)
+//   and PV runs the six products of P's and V's terms, V through the
+//   transpose bit. Each key tile's PV goes into a fresh accumulator that is
+//   added to the running output once per tile, so that the tensor cores'
+//   own accumulation (which may round toward zero) only ever works on one
+//   tile's sums. Three terms are within float32 rounding of the float32
+//   result; two leave about 2^-16 of the probabilities and fail
+//   tests/test_torch_kernels.py's comparison with float64 on peaked inputs.
+// The float32 kernel needs more registers a thread than the bf16 one: the
+// tile's logits, three P terms and two output accumulators, 168 values at
+// d 128. A block of nine warps or more caps a thread at 168 registers
+// (CUDA 12.8's ptxas keeps that one budget for the whole kernel whatever
+// setmaxnreg asks, so a producer warpgroup that hands its registers to
+// the consumers spilled from d 56), so the kernel has no producer warp:
+// its eight warps may hold 255 registers each, and thread 0 issues the
+// copies between its own tiles. Tiles are 64 keys (32 from d 104, where three terms of 64-key
+// K and V tiles beside Q's terms no longer fit twice in shared memory),
+// with as many stages as fit, up to four. Its output is written from
+// registers (float2 per thread, whole 32-byte sectors), with no staging.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_runtime.h>
@@ -89,102 +128,6 @@ constexpr int kHeadDim = BT_HEAD_DIM;
 static_assert(kHeadDim >= 8 && kHeadDim <= 128 && kHeadDim % 8 == 0,
               "head dim: a multiple of 8 from 8 to 128");
 
-// Where the rows live. Strides are in elements; q, k, v and out already
-// point at lane 0 of head 0 of batch 0.
-struct AttnArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const uint8_t* key_mask;  // (Nk,) or null
-  void* out;
-  int N, Nk;                // queries and keys per batch row
-  int q_stride, kv_stride, o_stride;
-  float scale;
-};
-
-// ------------------------------------------------------------- float32
-constexpr int kBQ = 128;  // queries per block, one per thread
-constexpr int kBK = 32;   // keys per shared-memory tile
-
-template <int HD>
-__global__ void __launch_bounds__(kBQ) attention_f32_kernel(const AttnArgs a) {
-  __shared__ __align__(16) float Ks[kBK][HD];
-  __shared__ __align__(16) float Vs[kBK][HD];
-  __shared__ float Kf[kBK];  // 0 live, 1 masked (-1e30), 2 past the end (-inf)
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int qi = blockIdx.x * kBQ + threadIdx.x;
-  const bool qvalid = qi < a.N;
-  const float* qb = static_cast<const float*>(a.q) + (long long)b * a.N * a.q_stride + h * HD;
-  const long long kvb = (long long)b * a.Nk * a.kv_stride + h * HD;
-  const float* kb = static_cast<const float*>(a.k) + kvb;
-  const float* vb = static_cast<const float*>(a.v) + kvb;
-
-  float q[HD], o[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    q[c] = qvalid ? qb[(long long)qi * a.q_stride + c] : 0.f;
-    o[c] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < a.Nk; k0 += kBK) {
-    for (int e = threadIdx.x; e < kBK * HD; e += kBQ) {
-      const int r = e / HD, c = e % HD;
-      const int kr = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (kr < a.Nk) {
-        kv = kb[(long long)kr * a.kv_stride + c];
-        vv = vb[(long long)kr * a.kv_stride + c];
-      }
-      Ks[r][c] = kv;
-      Vs[r][c] = vv;
-    }
-    if (threadIdx.x < kBK) {
-      const int kr = k0 + threadIdx.x;
-      Kf[threadIdx.x] =
-          kr >= a.Nk ? 2.f : ((a.key_mask != nullptr && a.key_mask[kr] == 0) ? 1.f : 0.f);
-    }
-    __syncthreads();
-
-    if (qvalid) {
-      float s[kBK];
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kBK; ++j) {
-        float acc = 0.f;
-#pragma unroll
-        for (int c = 0; c < HD; ++c) acc = fmaf(q[c], Ks[j][c], acc);
-        acc *= a.scale;
-        const float f = Kf[j];
-        acc = f == 0.f ? acc : (f == 1.f ? -1e30f : -INFINITY);
-        s[j] = acc;
-        tmax = fmaxf(tmax, acc);
-      }
-      const float m_new = fmaxf(m, tmax);  // finite: every tile has a key < Nk
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int c = 0; c < HD; ++c) o[c] *= corr;
-#pragma unroll
-      for (int j = 0; j < kBK; ++j) {
-        const float p = expf(s[j] - m_new);
-        l += p;
-#pragma unroll
-        for (int c = 0; c < HD; ++c) o[c] = fmaf(p, Vs[j][c], o[c]);
-      }
-      m = m_new;
-    }
-    __syncthreads();
-  }
-
-  if (qvalid) {
-    const float inv = 1.f / l;
-    float* dst = static_cast<float*>(a.out) + ((long long)b * a.N + qi) * a.o_stride + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) dst[c] = o[c] * inv;
-  }
-}
 
 // ------------------------------------------------------------- bf16, Hopper
 constexpr int kWarpgroups = 2;                 // consumer warpgroups of 64 queries
@@ -330,6 +273,11 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[R][4]) {
   for (int i = 0; i < R; ++i)
     asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]), "+r"(r[i][3])::"memory");
 }
+template <int T, int R>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[T][R][4]) {
+#pragma unroll
+  for (int i = 0; i < T; ++i) reg_fence(r[i]);
+}
 
 // The two consumer warpgroups take turns at their exponentials (named
 // barriers 3 and 4, 256 threads: one warpgroup syncs, the other arrives), so
@@ -382,7 +330,8 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
 // d (64 x N) += a (64 x 16, bf16 pairs in registers, the mma.m16n8k16 A
 // fragment per warp) b (16 x N, MN-major in shared memory: transpose bit
 // set), for N = kDPad: N / 2 accumulators a thread, the operand lists
-// spelled out per N by the table in the body.
+// spelled out per N by the table in the body. With `accumulate` 0 the
+// product overwrites d.
 #define BT_F8(i)                                                                         \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -402,10 +351,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
                  "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32.bf16.bf16 {" ACC "}, " \
                  "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n"     \
                  : __VA_ARGS__                                                            \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
+                                         uint64_t desc_b, int accumulate = 1) {
   static_assert(N % 16 == 0 && N >= 16 && N <= 128, "PV width: a multiple of 16 up to 128");
   BT_WGMMA_PV(16, BT_ACC8, 8, 9, 10, 11, 12, 13, BT_F8(0))
   BT_WGMMA_PV(32, BT_ACC16, 16, 17, 18, 19, 20, 21, BT_F8(0), BT_F8(8))
@@ -438,8 +387,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[kOut], const uint32_t (&p)[k
                                         8 * kRowBytes));
 }
 
-// Online softmax of one key tile on its QK^T accumulators. This thread holds
-// rows g and g+8 of its warp's 16 and, for i < kAcc/4, keys k0 + 8i + 2t and
+// Online softmax of one key tile of 2 NA keys on its NA QK^T accumulators
+// (NA = kAcc in the bf16 kernel). This thread holds
+// rows g and g+8 of its warp's 16 and, for i < NA/4, keys k0 + 8i + 2t and
 // k0 + 8i + 2t + 1: s[4i], s[4i+1] of row g and s[4i+2], s[4i+3] of row g+8.
 // With x = logit * scale * log2(e) (-1e30 for a masked key, -inf past Nk),
 // s becomes 2^(x - m) with m the running row maximum, and corr the factor
@@ -451,7 +401,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[kOut], const uint32_t (&p)[k
 // 16 % slower on full tiles at the davis_demo shape (PERF.md). The
 // exponentials run in turns with the other warpgroup (`last`: this
 // warpgroup's final turn).
-__device__ __forceinline__ void softmax_tile(float (&s)[kAcc], float& m_a, float& m_b, float& l_a,
+template <int NA>
+__device__ __forceinline__ void softmax_tile(float (&s)[NA], float& m_a, float& m_b, float& l_a,
                                              float& l_b, float& corr_a, float& corr_b, float c,
                                              bool fast, int k0, int Nk,
                                              const uint8_t* __restrict__ key_mask, int t, int wg,
@@ -465,7 +416,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kAcc], float& m_a, float
       pb[r] = fmaxf(s[4 * r + 2], s[4 * r + 3]);
     }
 #pragma unroll
-    for (int i = 4; i < kAcc / 4; ++i) {
+    for (int i = 4; i < NA / 4; ++i) {
       pa[i % 4] = fmaxf(pa[i % 4], fmaxf(s[4 * i], s[4 * i + 1]));
       pb[i % 4] = fmaxf(pb[i % 4], fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
@@ -473,7 +424,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kAcc], float& m_a, float
     mx_b = fmaxf(fmaxf(pb[0], pb[1]), fmaxf(pb[2], pb[3])) * c;
   } else {
 #pragma unroll
-    for (int i = 0; i < kAcc / 4; ++i) {
+    for (int i = 0; i < NA / 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = k0 + 8 * i + 2 * t + j;
@@ -500,7 +451,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kAcc], float& m_a, float
   turn_wait(wg);
   if (fast) {
 #pragma unroll
-    for (int i = 0; i < kAcc; i += 4) {
+    for (int i = 0; i < NA; i += 4) {
       s[i] = ex2(fmaf(s[i], c, -m_a));
       s[i + 1] = ex2(fmaf(s[i + 1], c, -m_a));
       s[i + 2] = ex2(fmaf(s[i + 2], c, -m_b));
@@ -508,7 +459,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kAcc], float& m_a, float
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < kAcc; i += 4) {
+    for (int i = 0; i < NA; i += 4) {
       s[i] = ex2(s[i] - m_a);
       s[i + 1] = ex2(s[i + 1] - m_a);
       s[i + 2] = ex2(s[i + 2] - m_b);
@@ -518,7 +469,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kAcc], float& m_a, float
   if (wg == 0 || !last) turn_pass(wg);  // warpgroup 1 passed first, so it passes once less
   float ra[4] = {0.f, 0.f, 0.f, 0.f}, rb[4] = {0.f, 0.f, 0.f, 0.f};  // partial row sums
 #pragma unroll
-  for (int i = 0; i < kAcc / 4; ++i) {
+  for (int i = 0; i < NA / 4; ++i) {
     ra[i % 4] += s[4 * i] + s[4 * i + 1];
     rb[i % 4] += s[4 * i + 2] + s[4 * i + 3];
   }
@@ -675,6 +626,298 @@ __global__ void __launch_bounds__(kThreads, 1)
     tma_store(&map_o, sm.o[wg], h * kHeadDim, q0 + wg * 64, b);
 }
 
+// ------------------------------------------------------------- float32 as three bf16 terms
+// The three-term split of a pair of floats (header note): t1 = bf16(x),
+// t2 = bf16(x - t1), t3 = bf16(x - t1 - t2), each rounded to nearest even;
+// both differences are exact in float32.
+__device__ __forceinline__ void split3(float lo, float hi, uint32_t& t1, uint32_t& t2,
+                                       uint32_t& t3) {
+  const __nv_bfloat162 b1 = __floats2bfloat162_rn(lo, hi);
+  const float2 f1 = __bfloat1622float2(b1);
+  const float r_lo = lo - f1.x, r_hi = hi - f1.y;
+  const __nv_bfloat162 b2 = __floats2bfloat162_rn(r_lo, r_hi);
+  const float2 f2 = __bfloat1622float2(b2);
+  const __nv_bfloat162 b3 = __floats2bfloat162_rn(r_lo - f2.x, r_hi - f2.y);
+  t1 = *reinterpret_cast<const uint32_t*>(&b1);
+  t2 = *reinterpret_cast<const uint32_t*>(&b2);
+  t3 = *reinterpret_cast<const uint32_t*>(&b3);
+}
+
+// One split of (rows, lanes) float32 rows `stride` elements apart into the
+// (3, rows, lanes) bf16 terms at dst.
+struct SplitJob {
+  const float* src;
+  __nv_bfloat16* dst;
+  long long rows, stride;
+  int lanes;
+};
+constexpr int kSplitJobs = 3;  // q, k and v of one attention call
+struct SplitJobs {
+  SplitJob job[kSplitJobs];
+};
+
+// Job blockIdx.y, 8 lanes a thread per step: two 16-byte loads, three
+// 16-byte stores (lanes a multiple of 8, stride of 4, 16-byte bases).
+__global__ void __launch_bounds__(256) split_terms_kernel(const __grid_constant__ SplitJobs jobs) {
+  const SplitJob& jb = jobs.job[blockIdx.y];
+  const int vecs = jb.lanes / 8;
+  const long long n = jb.rows * vecs, term = jb.rows * jb.lanes;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / vecs;
+    const int c = static_cast<int>(i - r * vecs) * 8;
+    const float4* src = reinterpret_cast<const float4*>(jb.src + r * jb.stride + c);
+    const float4 a = __ldg(src), b = __ldg(src + 1);
+    uint4 t1, t2, t3;
+    split3(a.x, a.y, t1.x, t2.x, t3.x);
+    split3(a.z, a.w, t1.y, t2.y, t3.y);
+    split3(b.x, b.y, t1.z, t2.z, t3.z);
+    split3(b.z, b.w, t1.w, t2.w, t3.w);
+    __nv_bfloat16* dst = jb.dst + r * jb.lanes + c;
+    *reinterpret_cast<uint4*>(dst) = t1;
+    *reinterpret_cast<uint4*>(dst + term) = t2;
+    *reinterpret_cast<uint4*>(dst + 2 * term) = t3;
+  }
+}
+
+constexpr int kTerms = 3;
+constexpr int kF32TileK = kBoxes <= 6 ? 64 : 32;   // keys per tile (header note)
+constexpr int kF32Acc = kF32TileK / 2;             // QK^T accumulators per thread
+constexpr int kF32Steps = kF32TileK / 16;          // k-steps of PV per tile
+constexpr int kF32QTerm = kBoxes * kTileQ * kRowBytes;      // one term of Q, bytes
+constexpr int kF32KVTerm = kBoxes * kF32TileK * kRowBytes;  // one term of a K or V tile
+constexpr int kF32StageBytes = 2 * kTerms * kF32KVTerm;
+constexpr int kF32FitStages = (kSmemMax - 2048 - kTerms * kF32QTerm) / kF32StageBytes;
+constexpr int kF32Stages = kF32FitStages < 4 ? kF32FitStages : 4;
+static_assert(kF32Stages >= 2, "the float32 K/V ring needs two stages");
+// A producer warp where the consumers fit in the 168 registers nine warps
+// leave them (up to d 48); else thread 0 issues the copies (header note),
+// each tile's loads one tile after its stage is free when three stages or
+// more leave room for that, so that warpgroup 0 seldom waits for the other.
+constexpr bool kF32Producer = kBoxes <= 3;
+constexpr int kF32Threads = kConsumers + (kF32Producer ? 32 : 0);
+constexpr int kF32LoadLag = kF32Stages >= 3 ? 1 : 0;
+
+struct __align__(1024) SmemF32 {
+  __nv_bfloat16 q[kTerms][kBoxes][kTileQ * kBox];
+  __nv_bfloat16 k[kF32Stages][kTerms][kBoxes][kF32TileK * kBox];
+  __nv_bfloat16 v[kF32Stages][kTerms][kBoxes][kF32TileK * kBox];
+  uint64_t full[kF32Stages], empty[kF32Stages], q_full;
+};
+
+// d (64 x N) (+)= a (64 x 16) b^T, both K-major in shared memory, for the
+// key tile's N = kF32TileK; operand lists per N as wgmma_pv's.
+#define BT_WGMMA_SS(NN, ACC, A, B, P, ...)                                                \
+  if constexpr (N == NN)                                                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                         \
+                 "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32.bf16.bf16 {" ACC "}, " \
+                 "%" #A ", %" #B ", p, 1, 1, 0, 0;\n}\n"                                   \
+                 : __VA_ARGS__                                                            \
+                 : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  static_assert(N == 32 || N == 64, "QK^T width of the float32 kernel: 32 or 64 keys");
+  BT_WGMMA_SS(32, BT_ACC16, 16, 17, 18, BT_F8(0), BT_F8(8))
+  BT_WGMMA_SS(64, BT_ACC32, 32, 33, 34, BT_F8(0), BT_F8(8), BT_F8(16), BT_F8(24))
+}
+
+// The term pairs (i, j), i + j <= 2, smallest products first: pair pr is
+// (pair_a(pr), pair_b(pr)) = (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0).
+// The first product overwrites the accumulator, the rest add to it.
+__host__ __device__ constexpr int pair_a(int pr) { return pr < 3 ? 2 - pr : (pr < 5 ? 4 - pr : 0); }
+__host__ __device__ constexpr int pair_b(int pr) { return pr < 3 ? pr : (pr < 5 ? pr - 3 : 0); }
+
+// S = sum over the pairs of Q_i K_j^T for one warpgroup's 64 queries and
+// one key tile: 6 kBoxes products.
+__device__ __forceinline__ void issue_qk3(float (&s)[kF32Acc], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int pr = 0; pr < 6; ++pr)
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x)
+      wgmma_ss<kF32TileK>(
+          s, sw32_desc(q_addr + pair_a(pr) * kF32QTerm + x * kTileQ * kRowBytes, 16, 8 * kRowBytes),
+          sw32_desc(k_addr + pair_b(pr) * kF32KVTerm + x * kF32TileK * kRowBytes, 16,
+                    8 * kRowBytes),
+          pr > 0 || x > 0);
+}
+
+// O_tile = sum over the pairs of P_i V_j: P's terms from registers, V's
+// (keys x kDPad lanes) with the transpose bit; 6 kF32Steps products.
+__device__ __forceinline__ void issue_pv3(float (&o)[kOut],
+                                          const uint32_t (&p)[kTerms][kF32Steps][4],
+                                          uint32_t v_addr) {
+#pragma unroll
+  for (int pr = 0; pr < 6; ++pr)
+#pragma unroll
+    for (int kk = 0; kk < kF32Steps; ++kk)
+      wgmma_pv<kDPad>(o, p[pair_a(pr)][kk],
+                      sw32_desc(v_addr + pair_b(pr) * kF32KVTerm + kk * 16 * kRowBytes,
+                                kF32TileK * kRowBytes, 8 * kRowBytes),
+                      pr > 0 || kk > 0);
+}
+
+// The probabilities, three bf16 terms of each, as A fragments of PV (the
+// layout of pack_p).
+__device__ __forceinline__ void pack_p3(uint32_t (&p)[kTerms][kF32Steps][4],
+                                        const float (&s)[kF32Acc]) {
+#pragma unroll
+  for (int kk = 0; kk < kF32Steps; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], p[0][kk][r], p[1][kk][r], p[2][kk][r]);
+}
+
+// One block per (128-query tile, head, batch row): two consumer warpgroups
+// of 64 queries each and, up to d 48, a producer warp (warp 8). From d 56
+// there is no producer warp, so that a thread may hold 255 registers
+// (eight warps; nine cap it at 168, which the tile's logits, three P terms
+// and two output accumulators then outgrow), and thread 0 issues every
+// copy: Q and the first tiles before the loop, then one tile each time a
+// stage is free. q, k and v are the maps over the terms (batch rows t B + b
+// for term t); out is float32 (B, N) rows of o_stride elements.
+__global__ void __launch_bounds__(kF32Threads, 1)
+    attention_f32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const uint8_t* __restrict__ key_mask, float* __restrict__ out,
+                               int B, int N, int Nk, int o_stride, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  SmemF32& sm =
+      *reinterpret_cast<SmemF32*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTileQ;
+  const int n_tiles = (Nk + kF32TileK - 1) / kF32TileK;
+
+  // box x (lanes 16x .. 16x + 15) of term tm of head h in `row`'s tile
+  const auto load = [&](void* dst, const CUtensorMap* map, uint64_t* bar, int tm, int x,
+                        int row) {
+    if constexpr (kSplitHeads)
+      tma_load_4d(dst, map, bar, x * kBox, h, row, tm * B + b);
+    else
+      tma_load(dst, map, bar, h * kHeadDim + x * kBox, row, tm * B + b);
+  };
+  // the three terms of K and V tile j into its stage
+  const auto load_tile = [&](int j) {
+    const int st = j % kF32Stages;
+    mbar_arrive_expect_tx(&sm.full[st], kF32StageBytes);
+    for (int tm = 0; tm < kTerms; ++tm)
+      for (int x = 0; x < kBoxes; ++x) {
+        load(sm.k[st][tm][x], &map_k, &sm.full[st], tm, x, j * kF32TileK);
+        load(sm.v[st][tm][x], &map_v, &sm.full[st], tm, x, j * kF32TileK);
+      }
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kF32Stages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumers / 32);  // lane 0 of each consumer warp
+    }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == (kF32Producer ? kConsumers : 0)) {
+    mbar_arrive_expect_tx(&sm.q_full, kTerms * kF32QTerm);
+    for (int tm = 0; tm < kTerms; ++tm)
+      for (int x = 0; x < kBoxes; ++x) load(sm.q[tm][x], &map_q, &sm.q_full, tm, x, q0);
+    for (int j = 0; j < (kF32Producer ? n_tiles : kF32Stages) && j < n_tiles; ++j) {
+      if (j >= kF32Stages) mbar_wait(&sm.empty[j % kF32Stages], (j / kF32Stages - 1) & 1);
+      load_tile(j);
+    }
+  }
+  if (kF32Producer && warp == kConsumers / 32) return;
+
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;
+  const bool fast_ok = key_mask == nullptr && c > 0.f;
+  const uint32_t q_addr = smem_u32(sm.q[0][0]) + wg * 64 * kRowBytes;
+
+  float o[kOut], ot[kOut];  // the running output; one tile's PV
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) o[i] = ot[i] = 0.f;
+  float s[kF32Acc];
+  uint32_t p[kTerms][kF32Steps][4];
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, corr_a, corr_b;
+
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 takes the first turn
+  mbar_wait(&sm.q_full, 0);
+  mbar_wait(&sm.full[0], 0);
+  wgmma_fence();
+  issue_qk3(s, q_addr, smem_u32(sm.k[0][0][0]));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && kF32TileK <= Nk, 0, Nk,
+               key_mask, t, wg, n_tiles == 1);
+  pack_p3(p, s);
+
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    const int st = j % kF32Stages, sn = (j + 1) % kF32Stages;
+    mbar_wait(&sm.full[sn], ((j + 1) / kF32Stages) & 1);
+    reg_fence(ot);
+    reg_fence(p);
+    wgmma_fence();
+    issue_qk3(s, q_addr, smem_u32(sm.k[sn][0][0]));
+    wgmma_commit();
+    issue_pv3(ot, p, smem_u32(sm.v[st][0][0]));
+    wgmma_commit();
+    wgmma_wait<1>();  // QK^T of tile j+1 is done; PV of tile j may run on
+    reg_fence(s);
+    const int k0 = (j + 1) * kF32TileK;
+    softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && k0 + kF32TileK <= Nk, k0,
+                 Nk, key_mask, t, wg, j + 2 == n_tiles);
+    wgmma_wait<0>();
+    reg_fence(ot);
+    reg_fence(p);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);  // tile j's K and V are read
+    if constexpr (!kF32Producer) {
+      const int jj = j - kF32LoadLag;  // both warpgroups past tile jj: tile jj + stages
+      if (threadIdx.x == 0 && jj >= 0 && jj + kF32Stages < n_tiles) {
+        mbar_wait(&sm.empty[jj % kF32Stages], (jj / kF32Stages) & 1);
+        load_tile(jj + kF32Stages);
+      }
+    }
+    // o holds the tiles before j at tile j's maximum: add tile j, then
+    // move to tile j+1's maximum
+#pragma unroll
+    for (int i = 0; i < kOut / 4; ++i) {
+      o[4 * i] = (o[4 * i] + ot[4 * i]) * corr_a;
+      o[4 * i + 1] = (o[4 * i + 1] + ot[4 * i + 1]) * corr_a;
+      o[4 * i + 2] = (o[4 * i + 2] + ot[4 * i + 2]) * corr_b;
+      o[4 * i + 3] = (o[4 * i + 3] + ot[4 * i + 3]) * corr_b;
+    }
+    pack_p3(p, s);
+  }
+  reg_fence(ot);
+  reg_fence(p);
+  wgmma_fence();
+  issue_pv3(ot, p, smem_u32(sm.v[(n_tiles - 1) % kF32Stages][0][0]));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(ot);
+
+  // normalise and write this thread's rows g and g+8, columns 8i + 2t and
+  // 8i + 2t + 1 for i < d / 8 (PV's columns past d are not written)
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
+  }
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+  const int row = q0 + wg * 64 + wl * 16 + g;
+  float* dst = out + ((long long)b * N + row) * o_stride + h * kHeadDim + 2 * t;
+#pragma unroll
+  for (int i = 0; i < kHeadDim / 8; ++i) {
+    if (row < N)
+      *reinterpret_cast<float2*>(dst + 8 * i) =
+          make_float2((o[4 * i] + ot[4 * i]) * inv_a, (o[4 * i + 1] + ot[4 * i + 1]) * inv_a);
+    if (row + 8 < N)
+      *reinterpret_cast<float2*>(dst + 8LL * o_stride + 8 * i) = make_float2(
+          (o[4 * i + 2] + ot[4 * i + 2]) * inv_b, (o[4 * i + 3] + ot[4 * i + 3]) * inv_b);
+  }
+}
+
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -754,16 +997,46 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const uint8
   return cudaGetLastError();
 }
 
+// float32 rows as their three-term splits (the header note): q, k and v
+// point at term 0 of bf16 copies of the rows, term t at + t B N q_stride
+// (q) or + t B Nk kv_stride (k, v) elements; out is float32.
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const uint8_t* key_mask,
+                       float* out, int B, int N, int Nk, int heads, int q_stride, int kv_stride,
+                       int o_stride, float scale, cudaStream_t stream) {
+  const int C = heads * kHeadDim;
+  const int split = kSplitHeads ? heads : 0;  // q, k and v by head (header note)
+  CUtensorMap mq, mk, mv;
+  if (!bf16_map(&mq, q, C, N, kTerms * B, q_stride, kBox, kTileQ, CU_TENSOR_MAP_SWIZZLE_32B,
+                split) ||
+      !bf16_map(&mk, k, C, Nk, kTerms * B, kv_stride, kBox, kF32TileK, CU_TENSOR_MAP_SWIZZLE_32B,
+                split) ||
+      !bf16_map(&mv, v, C, Nk, kTerms * B, kv_stride, kBox, kF32TileK, CU_TENSOR_MAP_SWIZZLE_32B,
+                split))
+    return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(sizeof(SmemF32)) + 1024;  // + alignment slack
+  const cudaError_t e = cudaFuncSetAttribute(attention_f32_wgmma_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kTileQ - 1) / kTileQ, heads, B);
+  attention_f32_wgmma_kernel<<<grid, kF32Threads, smem, stream>>>(mq, mk, mv, key_mask, out, B, N,
+                                                                  Nk, o_stride, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Softmax attention over `heads` heads of dim d (BT_HEAD_DIM) for B batch
 // rows. q: (B, N) rows of stride q_stride; k and v: (B, Nk) rows of stride
 // kv_stride; out: (B, N) rows of stride o_stride. Head h reads lanes
 // h*d .. h*d+d-1 of each row from the given base pointers and writes the
-// same lanes of out. key_mask: (Nk,) uint8 or null. float32 (is_bf16 = 0)
-// or bfloat16 (is_bf16 = 1) throughout; for bf16 every base pointer must be
-// 16-byte aligned and every row stride a multiple of 8 elements (the TMA
-// copies' rule). Returns cudaGetLastError() after the launch.
+// same lanes of out. key_mask: (Nk,) uint8 or null. bfloat16 (is_bf16 = 1):
+// q, k, v and out are bf16. float32 (is_bf16 = 0): out is float32 and q, k
+// and v point at the three-term splits of the float32 rows
+// (split_terms_forward): three bf16 copies each, term t at + t B N q_stride
+// elements (q) or + t B Nk kv_stride (k and v). Every q, k, v and bf16 out
+// base pointer must be 16-byte aligned and their row strides a multiple of
+// 8 elements (the TMA copies' rule); a float32 out 8-byte aligned with an
+// even row stride. Returns cudaGetLastError() after the launch.
 extern "C" int attention_forward(const void* q, const void* k, const void* v,
                                  const void* key_mask, void* out, int B, int N, int Nk,
                                  int heads, int q_stride, int kv_stride, int o_stride,
@@ -774,16 +1047,44 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* mask = static_cast<const uint8_t*>(key_mask);
+  const auto misaligned = [](const void* p, int a) {
+    return reinterpret_cast<uintptr_t>(p) % a != 0;
+  };
+  if (misaligned(q, 16) || misaligned(k, 16) || misaligned(v, 16) || q_stride % 8 ||
+      kv_stride % 8)
+    return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-    if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out) || q_stride % 8 ||
-        kv_stride % 8 || o_stride % 8)
-      return (int)cudaErrorInvalidValue;
+    if (misaligned(out, 16) || o_stride % 8) return (int)cudaErrorInvalidValue;
     return (int)launch_bf16(q, k, v, mask, out, B, N, Nk, heads, q_stride, kv_stride, o_stride,
                             scale, st);
   }
-  const AttnArgs a{q, k, v, mask, out, N, Nk, q_stride, kv_stride, o_stride, scale};
-  const dim3 grid((N + kBQ - 1) / kBQ, heads, B);
-  attention_f32_kernel<kHeadDim><<<grid, kBQ, 0, st>>>(a);
+  if (misaligned(out, 8) || o_stride % 2) return (int)cudaErrorInvalidValue;
+  return (int)launch_f32(q, k, v, mask, static_cast<float*>(out), B, N, Nk, heads, q_stride,
+                         kv_stride, o_stride, scale, st);
+}
+
+// The three-term split of n (at most 3) float32 row sets in one launch:
+// set i is rows[i] rows of lanes[i] floats, stride[i] elements apart, from
+// src[i], written as (3, rows[i], lanes[i]) bf16 terms to dst[i]. lanes a
+// positive multiple of 8, strides a multiple of 4 and at least lanes, every
+// pointer 16-byte aligned. Returns cudaGetLastError() after the launch.
+extern "C" int split_terms_forward(const void* const* src, void* const* dst,
+                                   const long long* rows, const long long* stride,
+                                   const int* lanes, int n, void* stream) {
+  if (n < 1 || n > kSplitJobs) return (int)cudaErrorInvalidValue;
+  SplitJobs jobs{};
+  long long most = 0;
+  for (int i = 0; i < n; ++i) {
+    if (lanes[i] <= 0 || lanes[i] % 8 || stride[i] % 4 || stride[i] < lanes[i] || rows[i] < 0 ||
+        reinterpret_cast<uintptr_t>(src[i]) % 16 || reinterpret_cast<uintptr_t>(dst[i]) % 16)
+      return (int)cudaErrorInvalidValue;
+    jobs.job[i] = SplitJob{static_cast<const float*>(src[i]), static_cast<__nv_bfloat16*>(dst[i]),
+                           rows[i], stride[i], lanes[i]};
+    most = rows[i] * (lanes[i] / 8) > most ? rows[i] * (lanes[i] / 8) : most;
+  }
+  if (most == 0) return (int)cudaSuccess;
+  const long long blocks = (most + 255) / 256;
+  split_terms_kernel<<<dim3(blocks < 1024 ? (unsigned)blocks : 1024u, n), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(jobs);
   return (int)cudaGetLastError();
 }

@@ -30,13 +30,21 @@ source, compiled at its first use (ops/cuda_build.py); any other d raises
 ValueError on a CUDA tensor before a build or a launch.
 
 bf16 input runs on Hopper's tensor cores (TMA-fed shared-memory ring,
-wgmma, 128 queries per block), float32 input on the float32 pipes. The bf16
-kernel reads K and V by TMA, so the key and value lanes must start 16-byte
+wgmma, 128 queries per block). float32 input runs on the same pipeline as
+three-term bf16 products: on the H100 the six bf16 products of a
+float32-accurate QK^T and PV bound it, at 40 % of the time the float32
+pipes would take. So each float32 call is two launches: `split_terms`
+writes the q, k and v rows it reads in place as three bf16 terms each
+(t1 = bf16(x), t2 = bf16(x - t1), t3 = bf16(x - t1 - t2)), and the kernel
+sums the products of the term pairs of order <= 2 in float32, for QK^T
+and, after splitting the probabilities the same way in registers, for PV.
+The kernels read q, k and v by TMA, so their lanes must start 16-byte
 aligned. What bounds the kernels on the H100 and how they are laid out is in
 the source note of the .cu file. On a CUDA tensor each wrapper launches the
-kernel or raises; on a CPU tensor it runs the plain version
-(`fused_qkv_attention_plain`, `vmem_attention_plain`,
-`flash_attention_plain`), which the kernel is held against on the card.
+kernel (in float32 the split pass, then the kernel) or raises; on a CPU
+tensor it runs the plain version (`fused_qkv_attention_plain`,
+`vmem_attention_plain`, `flash_attention_plain`, `split_terms_plain`),
+which the kernel is held against on the card.
 The kernels have no backward (nor have the TPU kernels): on the card a
 wrapper raises when autograd would record through it, and gradients go
 through the plain versions on the CPU.
@@ -102,22 +110,88 @@ def fused_qkv_attention_plain(qkv: torch.Tensor, heads: int, scale: float,
     return out
 
 
-def _launch(q, k, v, key_mask, out, B, N, Nk, heads, d, q_stride, kv_stride, scale, what):
-    """One launch of the attention kernel built for head dim d on base
-    pointers and row strides (elements) over contiguous tensors."""
+def split_terms_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split pass: (3, *x.shape) bf16 terms of the
+    float32 x, t1 = bf16(x), t2 = bf16(x - t1), t3 = bf16(x - t1 - t2), each
+    rounded to nearest even (both differences are exact in float32). The
+    terms sum to x within float32 rounding."""
+    x = x.float()
+    t1 = x.to(torch.bfloat16)
+    r = x - t1.float()
+    t2 = r.to(torch.bfloat16)
+    return torch.stack([t1, t2, (r - t2.float()).to(torch.bfloat16)])
+
+
+def split_terms(*rows: torch.Tensor, head_dim: int = 48):
+    """The three-term split (`split_terms_plain`) of up to three float32
+    row sets in one launch: each a 2-D (rows, lanes) view whose rows are
+    `stride(0)` elements apart, read in place (the lanes of a packed qkv,
+    a kv= source or K4's split views need no copy). Returns a contiguous
+    (3, rows, lanes) bf16 tensor for each.
+
+    On the card each view needs lanes a multiple of 8, a row stride a
+    multiple of 4 and a 16-byte aligned start. The pass is compiled into
+    every head-dim build of the attention source; `head_dim` names the
+    build to launch it from (the attention wrappers pass their own, so no
+    other build is made). On CPU tensors it runs the plain version."""
+    if not 1 <= len(rows) <= 3:
+        raise ValueError(f"split_terms: 1 to 3 row sets, not {len(rows)}")
+    if all(x.device.type == "cpu" for x in rows):
+        return tuple(split_terms_plain(x) for x in rows)
+    for x in rows:
+        if x.device.type != "cuda" or x.device != rows[0].device or x.dtype != torch.float32:
+            raise TypeError(f"split_terms: float32 rows on one CUDA device, not {x.dtype} on "
+                            f"{x.device}")
+        if (x.ndim != 2 or x.stride(1) != 1 or x.shape[1] % 8 or x.stride(0) % 4
+                or x.stride(0) < x.shape[1] or x.data_ptr() % 16):
+            raise ValueError(f"split_terms: rows {tuple(x.shape)} with strides {x.stride()}, "
+                             f"start {x.data_ptr() % 16} bytes past 16-byte alignment (the kernel "
+                             "takes 2-D rows: lanes a multiple of 8, a row stride a multiple of 4 "
+                             "and at least the lanes, a 16-byte aligned start)")
+    outs = tuple(torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device) for x in rows)
+    n = len(rows)
+    fn = cuda_build.load("fused_qkv_attention", HEAD_DIM=head_dim).split_terms_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    def array(ctype, values):
+        return (ctype * n)(*values)
+
+    with torch.cuda.device(rows[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(array(ctypes.c_void_p, [x.data_ptr() for x in rows]),
+                    array(ctypes.c_void_p, [t.data_ptr() for t in outs]),
+                    array(ctypes.c_longlong, [x.shape[0] for x in rows]),
+                    array(ctypes.c_longlong, [x.stride(0) for x in rows]),
+                    array(ctypes.c_int, [x.shape[1] for x in rows]), n, stream)
+    cuda_build.check(status, "split_terms")
+    split_terms.launches += 1
+    return outs
+
+
+split_terms.launches = 0
+
+
+def _launch(q, k, v, key_mask, out, B, N, Nk, heads, d, scale, what):
+    """One launch of the attention kernel built for head dim d on 2-D row
+    views, q (B*N, lanes) and k, v (B*Nk, lanes) of one row stride, whose
+    head h is lanes h*d .. h*d+d-1. In float32 their three-term splits are
+    made first (`split_terms`, one launch) and the kernel reads those."""
     mask = None
     if key_mask is not None:
         if key_mask.shape != (Nk,) or key_mask.device != out.device:
             raise ValueError(f"{what}: key_mask must be ({Nk},) on {out.device}")
         mask = key_mask.to(torch.uint8).contiguous()
+    if out.dtype == torch.float32:
+        q, k, v = (t[0] for t in split_terms(q, k, v, head_dim=d))
     fn = cuda_build.load("fused_qkv_attention", HEAD_DIM=d).attention_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(q, k, v, None if mask is None else mask.data_ptr(), out.data_ptr(),
-                    B, N, Nk, heads, q_stride, kv_stride, out.shape[-1], float(scale),
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if mask is None else mask.data_ptr(), out.data_ptr(),
+                    B, N, Nk, heads, q.stride(0), k.stride(0), out.shape[-1], float(scale),
                     int(out.dtype == torch.bfloat16), stream)
     cuda_build.check(status, what)
 
@@ -159,10 +233,10 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int, scale: float,
         if src.dtype != qkv.dtype or src.device != qkv.device:
             raise TypeError("fused_qkv_attention: kv must match qkv's dtype and device")
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-    row = src.shape[-1]
-    base, esize = src.data_ptr(), src.element_size()
-    _launch(qkv.data_ptr(), base + koff * esize, base + (koff + C) * esize, key_mask, out,
-            B, N, src.shape[1], heads, C // heads, 3 * C, row, scale, "fused_qkv_attention")
+    Nk = src.shape[1]
+    rows = src.view(B * Nk, src.shape[-1])
+    _launch(qkv.view(B * N, 3 * C)[:, :C], rows[:, koff:koff + C], rows[:, koff + C:koff + 2 * C],
+            key_mask, out, B, N, Nk, heads, C // heads, scale, "fused_qkv_attention")
     fused_qkv_attention.launches += 1
     if kv is not None:
         fused_qkv_attention.kv_launches += 1
@@ -201,8 +275,8 @@ def _one_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     N, d = q.shape[-2:]
     q3, k3, v3 = (_kernel_input(x.reshape(-1, N, d), what) for x in (q, k, v))
     out = torch.empty_like(q3)
-    _launch(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), key_mask, out, q3.shape[0], N, N, 1,
-            d, d, d, scale, what)
+    _launch(q3.view(-1, d), k3.view(-1, d), v3.view(-1, d), key_mask, out, q3.shape[0], N, N, 1,
+            d, scale, what)
     return out.view(q.shape)
 
 
@@ -271,8 +345,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         cuda_build.refuse_autograd("flash_attention", q, k, v)
         B, h, N, d = q.shape
         out = torch.empty((B, N, h * d), dtype=q.dtype, device=q.device)
-        _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask, out, B, N, N, h, d, r_q, r_k,
-                scale, "flash_attention")
+        q2, k2, v2 = (torch.as_strided(x, (B * N, h * d), (r, 1))
+                      for x, r in ((q, r_q), (k, r_k), (v, r_k)))
+        _launch(q2, k2, v2, key_mask, out, B, N, N, h, d, scale, "flash_attention")
         flash_attention.strided_launches += 1
         out = out.view(B, N, h, d).permute(0, 2, 1, 3)
     else:

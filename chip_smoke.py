@@ -6,7 +6,9 @@
 Phases, each of which fails the run when it fails:
 
 1. build the hand-written CUDA kernels from batrack_tpu_torch/csrc/ (one
-   nvcc per source, all started together);
+   nvcc per source and width, all started together, every head dim of the
+   attention source among them), failing if a float32 attention build
+   spills or serialises its wgmma (ptxas's output);
 2. K1 (correlation windows) and K2 (packed-qkv attention) at the davis_demo
    shapes of the sparse-SLAM path (and the other kernels, below), each
    held against its plain PyTorch version on the same inputs with TF32 off
@@ -215,11 +217,16 @@ views) at head dims 24, 32, 64, 96 and 128 with 8 heads on (12, 2400)
 rows in bf16, and at 128 in float32; the float32 route at the tracker's
 d 48 (K2 packed at (12, 2400, 1152), as phase 3's float32 forwards
 launch it, and K2 kv= at bench_scaling_torch.py's tracker shape, 8
-frames of 1024 tracks); K1's three routes at radius 1, 2 and 4 (C 128),
-at C 64 and 256 (radius 3) and at radius 4 with C 256 (three consumer
-warps a block) on davis_demo's levels. Each is held
+frames of 1024 tracks) and its split pass (split_terms, bitwise against
+its plain version, one launch per float32 K2 launch); K1's three routes
+at radius 1, 2 and 4 (C 128), at C 64 and 256 (radius 3) and at radius 4
+with C 256 (three consumer warps a block) on davis_demo's levels. Each
+is held
 against its plain version at the limits above and timed beside its plain
-version, its bound and, for attention, SDPA. Phase 3 adds one bf16
+version, its bound and, for attention, SDPA; then the float32 route at d
+8, 48 and 128 on q, k, v of 3 N(0, 1) is held to a float64 evaluation
+(within 2e-5, or the float32 plain version's distance where larger, as
+tests/test_torch_kernels.py holds it). Phase 3 adds one bf16
 forward under BATRACK_TPU_ATTN=flash, held against the fused route's
 forward at the bf16 limits: K4 must launch as often as K2 does there,
 every time on the split views in place (its strided counter), and K2 not
@@ -239,9 +246,10 @@ phase 11 its launches, first-append checks and times at 1536 tracks under
 out of it; then one entry per kernel at each other width, named with its
 width (fused_qkv_attention_d64, corr_sample_int8_r4_c128, ...; the
 float32 route's rows end in _f32), whose launches are 0 except K2's at
-head dim 64, phase 14's; fused_qkv_attention_f32, K2 packed at d 48, also
-gives its launches per float32 forward of phase 3), the card's name and
-power limit
+head dim 64, phase 14's; fused_qkv_attention_f32, K2 packed at d 48, and
+split_terms, the float32 route's split pass (replaces: none), also give
+their launches per float32 forward of phase 3, the former also its
+readings against float64), the card's name and power limit
 (nvidia-smi), and last {"ok": true, "device": {...}}. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result. The sha256 it prints first covers this script, the scripts its
@@ -830,19 +838,99 @@ SCALING_TRACKS, SCALING_S = 1024, 8  # bench_scaling_torch.py's tracker section 
 
 def width_builds():
     """The builds of every width phase 2 and phase 14 run beside the
-    default ones."""
+    default ones, and of every other head dim the attention wrappers take
+    (phase 1 holds each build's float32 kernel to no spill and no
+    serialised wgmma; phase 2 runs d 8 and 128 in float32 against
+    float64)."""
     from batrack_tpu_torch.ops import cuda_build
+    from batrack_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 
-    return ([cuda_build.spec("fused_qkv_attention", HEAD_DIM=d) for d in WIDTH_HEAD_DIMS]
+    return ([cuda_build.spec("fused_qkv_attention", HEAD_DIM=d)
+             for d in (*WIDTH_HEAD_DIMS, *KERNEL_HEAD_DIMS)]
             + [cuda_build.spec("corr_sample", RADIUS=r, C=c) for r, c in WIDTH_K1])
+
+
+def f32_build_faults(logs):
+    """From the builds' ptxas output (cuda_build.build's logs): for each
+    attention build, the float32 kernel's spill lines with nonzero bytes
+    and any C75xx line about it (a serialised or fenced wgmma)."""
+    faults = {}
+    for name, text in logs.items():
+        if not name.startswith("fused_qkv_attention"):
+            continue
+        fn = ""
+        for ln in text.splitlines():
+            if "Function properties for" in ln:
+                fn = ln
+            elif "attention_f32_wgmma_kernel" in fn and "spill" in ln and (
+                    " 0 bytes spill stores" not in ln or " 0 bytes spill loads" not in ln):
+                faults.setdefault(name, []).append(ln.strip())
+            if "C75" in ln and "attention_f32_wgmma_kernel" in ln:
+                faults.setdefault(name, []).append(ln.strip()[:120])
+    return faults
+
+
+def f32_route_vs_float64(dev, gen):
+    """The float32 route (K2 packed) on q, k, v of 3 N(0, 1), (2, 333)
+    rows of 2 heads, at d 8, 48 and 128 with and without a key mask, as
+    tests/test_torch_kernels.py::test_attention_f32_keeps_three_terms_on_gpu
+    holds it: its largest distance from a float64 evaluation beside the
+    float32 plain version's (cuBLAS float32), which must be within 2e-5 or
+    the plain version's distance (two terms leave 3.6-5.1e-4 in
+    tests/test_torch_attention_f32_split.py's emulation).
+    Returns {d: [kernel, plain]}, the worst over the two masks."""
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention, fused_qkv_attention_plain
+    from batrack_tpu_torch.utils.config import full_fp32
+
+    log("[f32 route] against float64 on q, k, v of 3 N(0, 1), (2, 333) rows, 2 heads")
+    out = {}
+    for d in (8, 48, 128):
+        worst = [0.0, 0.0]
+        for masked in (False, True):
+            qkv = 3 * torch.randn((2, 333, 3 * 2 * d), generator=gen, device=dev)
+            mask = torch.rand((333,), generator=gen, device=dev) > 0.3 if masked else None
+            x = qkv.double()
+            ref = []
+            for h in range(2):
+                q, k, v = (x[..., i * 2 * d + h * d: i * 2 * d + (h + 1) * d] for i in range(3))
+                logits = q @ k.transpose(1, 2) * d ** -0.5
+                if mask is not None:
+                    logits = logits.masked_fill(~mask[None, None], -1e30)
+                ref.append(torch.softmax(logits, -1) @ v)
+            ref = torch.cat(ref, -1)
+            with full_fp32():
+                got = fused_qkv_attention(qkv, 2, d ** -0.5, mask)
+                plain = fused_qkv_attention_plain(qkv, 2, d ** -0.5, mask)
+            err, plain_err = max_err(got, ref), max_err(plain, ref)
+            check(f"float32 route d={d}, key mask {'yes' if masked else 'no'}, vs float64 "
+                  f"(plain float32 {plain_err:.3e})", err, max(2e-5, plain_err))
+            worst = [max(worst[0], err), max(worst[1], plain_err)]
+        out[d] = worst
+    return out
+
+
+def f32_attention_bound(n_logits, d, nbytes):
+    """bound() of float32 softmax attention: the exponentials, and QK^T and
+    PV float32-accurate on the cheaper of two routes, the float32 pipes or
+    the six bf16 tensor-core products of three-term splits (the float32
+    kernel's route; 3 TF32 products cost the same), against `nbytes` moved.
+    Also returns which route the products took and a description."""
+    flops = 4 * n_logits * d
+    t_pipes, t_terms = flops / F32_FLOPS, 6 * flops / BF16_FLOPS
+    route = "6 bf16 products" if t_terms <= t_pipes else "float32 pipes"
+    bound_ms, bound_by = bound(nbytes, [min(t_pipes, t_terms), n_logits / SFU_OPS_S])
+    what = (f"{flops / 1e9:.1f} GFLOP f32: {6 * flops / 1e9:.1f} GFLOP of 6 bf16 products "
+            f"{t_terms * 1e3:.4f} ms, float32 pipes {t_pipes * 1e3:.4f} ms, taken: {route}; "
+            f"{n_logits / 1e6:.0f} M exp, {nbytes / 1e6:.1f} MB")
+    return bound_ms, bound_by, route, what
 
 
 def attention_row(label, kernel, plain, library, d, n_logits, nbytes, f32=False, reps=20):
     """One attention kernel call against its plain version (two bf16 ulps,
     or TOL["k2_f32"] in float32), then timed beside the plain version, one
     SDPA call on the same inputs and its bound (the exponentials, or in
-    float32 the products on the float32 pipes). Returns the kernels-line
-    numbers."""
+    float32 f32_attention_bound's). Returns the kernels-line numbers (in
+    float32 also the route of the bound's products)."""
     from batrack_tpu_torch.utils.config import full_fp32
 
     with full_fp32():
@@ -854,16 +942,17 @@ def attention_row(label, kernel, plain, library, d, n_logits, nbytes, f32=False,
         ms = cuda_ms(kernel, reps=reps)
         plain_ms = cuda_ms(plain, reps=2)
         library_ms = cuda_ms(library, reps=reps)
+    extra = {}
     if f32:
-        flops = 4 * n_logits * d
-        bound_ms, bound_by = bound(nbytes, [flops / F32_FLOPS, n_logits / SFU_OPS_S])
-        what = f"{flops / 1e9:.1f} GFLOP f32, {n_logits / 1e6:.0f} M exp, {nbytes / 1e6:.1f} MB"
+        bound_ms, bound_by, route, what = f32_attention_bound(n_logits, d, nbytes)
+        extra["bound_products"] = route
     else:
         bound_ms, bound_by, what = attention_bound(n_logits, d, nbytes)
     log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}  "
-        f"bound_ms {bound_ms:.4f} ({bound_by}: {what})")
+        f"bound_ms {bound_ms:.4f} ({bound_by}: {what})"
+        + (f"; {'under' if ms < library_ms else 'NOT under'} SDPA's float32 time" if f32 else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
 def attention_width_rows(d, dt, dev, gen, reps=20):
@@ -937,7 +1026,7 @@ def phase_attention_widths(dev, gen):
     d, scale = HIDDEN // HEADS, (HIDDEN // HEADS) ** -0.5
     for n, nk, kv_src in ((NQ, NQ, False), (SCALING_TRACKS, SCALING_TRACKS, True)):
         b = S if not kv_src else SCALING_S
-        log(f"[f32 route] attention_f32_kernel at d {d}: qkv ({b}, {n}, {3 * HIDDEN}) float32"
+        log(f"[f32 route] attention_f32_wgmma_kernel at d {d}: qkv ({b}, {n}, {3 * HIDDEN}) float32"
             + (f", kv= slim ({b}, {nk}, {2 * HIDDEN})" if kv_src else ""))
         qkv = torch.randn((b, n, 3 * HIDDEN), generator=gen, device=dev)
         kv = torch.randn((b, nk, 2 * HIDDEN), generator=gen, device=dev) if kv_src else None
@@ -953,7 +1042,39 @@ def phase_attention_widths(dev, gen):
                         "route": "cuda", "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu",
                         "replaces": "batrack_tpu/ops/pallas_attention.py:22", "head_dim": d,
                         "dtype": "float32", "shape": [b, n, 3 * HIDDEN], **row})
+    entries.append(split_terms_row(dev, gen))
     return entries
+
+
+def split_terms_row(dev, gen):
+    """The float32 route's split pass as K2 packed runs it at phase 3's
+    float32 shape, (S, NQ, 3 HIDDEN): q, k and v lanes of the qkv rows read
+    in place, one launch. Held to its plain version bitwise, timed beside
+    it and its bound (4 bytes read and 6 written per element). It replaces
+    no TPU kernel and no one PyTorch call computes it (library_ms null)."""
+    from batrack_tpu_torch.ops.attention import split_terms, split_terms_plain
+
+    d = HIDDEN // HEADS
+    log(f"[f32 route] split_terms: the q, k and v lanes of qkv ({S}, {NQ}, {3 * HIDDEN}) "
+        "float32 as three bf16 terms each")
+    qkv = torch.randn((S, NQ, 3 * HIDDEN), generator=gen, device=dev)
+    rows = qkv.view(S * NQ, 3 * HIDDEN)
+    views = [rows[:, i * HIDDEN:(i + 1) * HIDDEN] for i in range(3)]
+    terms = split_terms(*views, head_dim=d)
+    torch.cuda.synchronize()
+    err = max(max_err(t.float(), split_terms_plain(x).float()) for x, t in zip(views, terms))
+    check("split_terms vs plain (bitwise)", err, 0.0)
+    ms = cuda_ms(lambda: split_terms(*views, head_dim=d), reps=30)
+    plain_ms = cuda_ms(lambda: [split_terms_plain(x) for x in views], reps=3)
+    n = qkv.numel()
+    bound_ms, bound_by = bound(n * 4 + n * 3 * 2, [0.0])
+    log(f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms null  bound_ms "
+        f"{bound_ms:.4f} ({bound_by}: {n * 4 / 1e6:.1f} MB read, {n * 6 / 1e6:.1f} MB written)")
+    return {"name": "split_terms", "route": "cuda",
+            "source": "batrack_tpu_torch/csrc/fused_qkv_attention.cu", "replaces": "none",
+            "head_dim": d, "dtype": "float32", "shape": [S, NQ, 3 * HIDDEN], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def phase_k1_widths(dev, gen):
@@ -1103,22 +1224,24 @@ def flash_route_check(ad, tin):
 
 def phase_tracker(cfg, images, depths, dev, gen):
     """Returns phase 3's input, K4's launches on the flash-route forward
-    and K2's launches per float32 forward (the float32 route's path)."""
-    from batrack_tpu_torch.ops.attention import fused_qkv_attention
+    and K2's and the split pass's launches per float32 forward (the float32
+    route's path: one split launch per K2 launch)."""
+    from batrack_tpu_torch.ops.attention import fused_qkv_attention, split_terms
     from batrack_tpu_torch.tracker import MDTrackerAdapter
 
     log("[tracker] full-width MDTracker forwards, kernels vs plain versions (TF32 off)")
     tin = tracker_input(images, depths, dev, gen)
-    f32_launches = []
+    f32_launches, split_launches = [], []
     for dtype, damped in (("float32", False), ("float32", True), ("bfloat16", True)):
         ad = MDTrackerAdapter(dataclasses.replace(cfg.model, compute_dtype=dtype),
                               seed=0, device=dev)
         if damped:
             damp_flow_heads(ad.model)
-        before = fused_qkv_attention.launches
+        before, before_split = fused_qkv_attention.launches, split_terms.launches
         kern, wit = tracker_diffs(ad, tin, gen)
         if dtype == "float32":
             f32_launches.append(fused_qkv_attention.launches - before)
+            split_launches.append(split_terms.launches - before_split)
         log(f"  {dtype}, flow heads {'x%g' % FLOW_HEAD_DAMPING if damped else 'random'}: "
             f"kernels vs plain {json.dumps(kern)}; witness, plain vs jittered plain "
             f"{json.dumps(wit)}")
@@ -1131,7 +1254,10 @@ def phase_tracker(cfg, images, depths, dev, gen):
         if dtype == "bfloat16":
             flash_launches = flash_route_check(ad, tin)
         del ad
-    log(f"  K2 launches per float32 forward (attention_f32_kernel): {f32_launches}")
+    log(f"  K2 launches per float32 forward (attention_f32_wgmma_kernel): {f32_launches}; "
+        f"split_terms launches: {split_launches}")
+    check("split_terms launches per float32 forward against K2's",
+          sum(abs(a - b) for a, b in zip(split_launches, f32_launches)), 0)
     return tin, flash_launches, f32_launches[0]
 
 
@@ -1199,24 +1325,27 @@ OFF_PATH = ("vmem_attention", "flash_attention", "corr_sample_mxu", "corr_sample
 
 
 def zero_off_path():
-    """Set the counters of the kernels no main path runs to 0: K3, K4 and
-    K1's mxu and int8 variants."""
-    from batrack_tpu_torch.ops.attention import flash_attention, vmem_attention
+    """Set the counters of the kernels no main path runs to 0: K3, K4,
+    K1's mxu and int8 variants and the float32 route's split pass (every
+    main path runs bf16)."""
+    from batrack_tpu_torch.ops.attention import flash_attention, split_terms, vmem_attention
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
 
-    vmem_attention.launches = flash_attention.launches = 0
+    vmem_attention.launches = flash_attention.launches = split_terms.launches = 0
     corr_sample.mxu_launches = corr_sample.int8_launches = 0
 
 
 def off_path_launches():
     """The counters zero_off_path set; each must still read 0."""
-    from batrack_tpu_torch.ops.attention import flash_attention, vmem_attention
+    from batrack_tpu_torch.ops.attention import flash_attention, split_terms, vmem_attention
     from batrack_tpu_torch.ops.corr_kernel import corr_sample
 
     launches = dict(zip(OFF_PATH, (vmem_attention.launches, flash_attention.launches,
                                    corr_sample.mxu_launches, corr_sample.int8_launches)))
+    launches["split_terms"] = split_terms.launches
     if any(launches.values()):
-        raise AssertionError(f"K3, K4 or a K1 option launched on a main path: {launches}")
+        raise AssertionError(f"K3, K4, a K1 option or the float32 split pass launched on a "
+                             f"main path: {launches}")
     return launches
 
 
@@ -3692,7 +3821,8 @@ def phase_head_dim(images, depths, dev, main_fps, smi):
 
 
 KERNEL_NAMES = {"attention_bf16_wgmma_kernel": "attention_bf16_wgmma_kernel",
-                "attention_f32_kernel": "attention_f32_kernel",
+                "attention_f32_wgmma_kernel": "attention_f32_wgmma_kernel",
+                "split_terms_kernel": "split_terms_kernel",
                 "corr_sample_kernelILi3ELb0E": "corr_sample_kernel<3 terms, bf16>",
                 "corr_sample_kernelILi1ELb0E": "corr_sample_kernel<1 term, bf16> (mxu)",
                 "corr_sample_kernelILi3ELb1E": "corr_sample_kernel<3 terms, int8>"}
@@ -3746,6 +3876,9 @@ def main() -> int:
                 fn = next((v for k, v in KERNEL_NAMES.items() if k in fn), fn[:40])
             elif "spill" in ln or "Used " in ln or "C75" in ln:
                 log(f"  {name} {fn}: {ln.replace('ptxas info    :', '').strip()}")
+    faults = f32_build_faults(logs)
+    check(f"float32 attention builds that spill or serialise wgmma {json.dumps(faults)}",
+          len(faults), 0)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3759,6 +3892,7 @@ def main() -> int:
     phase_edges(dev, gen)
     t_widths = time.perf_counter()
     widths = phase_attention_widths(dev, gen) + phase_k1_widths(dev, gen)
+    f32_vs_f64 = f32_route_vs_float64(dev, gen)
     log(f"[widths] {time.perf_counter() - t_widths:.1f} s for {len(widths)} kernels at other "
         "widths")
 
@@ -3823,10 +3957,14 @@ def main() -> int:
         if entry["name"] == "fused_qkv_attention_d64":
             entry["launches"] = wide["launches"]["fused_qkv_attention"]
             entry["davis_heads6_path"] = wide["k2_first_append"]
-        if entry["name"] == "fused_qkv_attention_f32":
-            # not on a main path; phase 3's float32 forwards launch it (K2
-            # packed at d 48, the width and route of this entry)
+        if entry["name"] in ("fused_qkv_attention_f32", "split_terms"):
+            # not on a main path; phase 3's float32 forwards launch them (K2
+            # packed at d 48, the width and route of these entries; one
+            # split launch per K2 launch, checked there)
             entry["launches_per_f32_forward"] = f32_launches
+        if entry["name"] == "fused_qkv_attention_f32":
+            entry["vs_float64_x3_inputs"] = {f"d{d}": {"kernel": e[0], "plain": e[1]}
+                                             for d, e in f32_vs_f64.items()}
     print(json.dumps({"kernels": [k1, k1_mxu, k1_int8, k2, k2kv, k3, k4, *widths]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,15 @@ On the CPU it checks the layout code around the kernels (the packed bf16
 pyramid, the plain attention against a textbook split-head softmax, the
 kv= source and K3 against the packed plain version). The kernel tests are
 marked gpu and skip without a CUDA device. Tolerances: K1 1e-4 (same bf16
-maps, float32 sums in another order); K2 (packed and kv=) and K3 1e-4 in
-float32, and in bf16 two bf16 ulps of the largest output magnitude
+maps, float32 sums in another order); K2 (packed and kv=), K3 and K4 1e-4
+in float32, where the kernel sums the six bf16 products of three-term
+splits of q, k, v and the probabilities (float32 sums in another order);
+the split pass bitwise against its plain version, on rows read in place
+from a packed qkv, a kv= source and K4's split views; the float32 route
+within 2e-5 of a float64 evaluation on q, k and v of 3 N(0, 1), or within
+the float32 plain version's own distance from it where that is larger,
+whose peaked softmax shows a dropped third term (3.6-5.1e-4 off); and
+in bf16 two bf16 ulps of the largest output magnitude
 (`bf16_tol`): both versions cast the probabilities to bf16 for the PV
 product (the plain one after normalising, the kernel before, relative to
 its running maximum) and round the output to bf16, so a correct kernel is
@@ -40,6 +47,8 @@ from batrack_tpu_torch.ops.attention import (
     fused_qkv_attention,
     fused_qkv_attention_plain,
     split_row_stride,
+    split_terms,
+    split_terms_plain,
     vmem_attention,
     vmem_attention_plain,
 )
@@ -629,6 +638,80 @@ def test_flash_attention_kernel_matches_plain_on_gpu(rng, cuda, layout, dtype, m
         ref = flash_attention_plain(q, k, v, d ** -0.5, mask)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+def attention_f64(qkv: torch.Tensor, heads: int, scale: float, mask) -> torch.Tensor:
+    """K2's function on the packed qkv in float64, one head at a time."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    d = C // heads
+    x = qkv.double()
+    out = []
+    for h in range(heads):
+        q, k, v = (x[..., i * C + h * d: i * C + (h + 1) * d] for i in range(3))
+        logits = q @ k.transpose(1, 2) * scale
+        if mask is not None:
+            logits = logits.masked_fill(~mask.bool()[None, None, :], -1e30)
+        out.append(torch.softmax(logits, -1) @ v)
+    return torch.cat(out, -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 48, 128])
+@pytest.mark.parametrize("mask_kind", [None, "random"])
+def test_attention_f32_keeps_three_terms_on_gpu(rng, cuda, mask_kind, d):
+    """The float32 route sums three bf16 terms of every operand: on q, k
+    and v of 3 N(0, 1) (a peaked softmax, outputs up to about 10) it is
+    within 2e-5 of a float64 evaluation of the same attention, or no
+    farther from it than the float32 plain version (cuBLAS float32) on the
+    same inputs where that is farther: at d 128 float32 itself strays
+    4.7-5.8e-5 on such inputs and the kernel 1.8-1.9e-5 (chip_smoke.py
+    phase 2; PERF.md). Two terms leave 3.6-5.1e-4 in a CPU emulation
+    of the sums (tests/test_torch_attention_f32_split.py), so a dropped
+    term fails this check at every d; the 1e-4 limit against the plain
+    version does not see it at N(0, 1) inputs."""
+    B, N, H = 2, 333, 2
+    qkv = torch.from_numpy((3 * rng.normal(size=(B, N, 3 * H * d))).astype(np.float32)).to(cuda)
+    mask = key_mask(mask_kind, N, rng)
+    mask = None if mask is None else mask.to(cuda)
+    out = fused_qkv_attention(qkv, H, d ** -0.5, mask)
+    torch.cuda.synchronize()
+    ref = attention_f64(qkv, H, d ** -0.5, mask)
+    with full_fp32():
+        plain = fused_qkv_attention_plain(qkv, H, d ** -0.5, mask)
+    tol = max(2e-5, (plain.double() - ref).abs().max().item())
+    torch.testing.assert_close(out.double(), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["packed", "kv_slim", "split_views"])
+def test_split_terms_matches_plain_on_gpu(rng, cuda, layout):
+    """The split pass == its plain version, bitwise, on the row sets the
+    float32 route hands it, read in place: q, k and v lanes of a packed
+    qkv; q of a qkv with k and v of a slim kv= source; K4's split views
+    (B, h, N, d) as (B*N, h*d) rows of stride 3C. One launch for the three
+    sets; magnitudes over six decades exercise every rounding."""
+    B, N, Nk, H, d = 3, 70, 37, 2, 48
+    C = H * d
+    mag = 10.0 ** rng.uniform(-3, 3, size=(B, N, 3 * C))
+    qkv = torch.from_numpy((rng.normal(size=(B, N, 3 * C)) * mag).astype(np.float32)).to(cuda)
+    packed = qkv.view(B * N, 3 * C)
+    if layout == "packed":
+        rows = [packed[:, i * C:(i + 1) * C] for i in range(3)]
+    elif layout == "kv_slim":
+        kv = torch.from_numpy(rng.normal(size=(B * Nk, 2 * C)).astype(np.float32)).to(cuda)
+        rows = [packed[:, :C], kv[:, :C], kv[:, C:]]
+    else:
+        q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+        assert split_row_stride(q) == 3 * C
+        rows = [torch.as_strided(x, (B * N, C), (3 * C, 1)) for x in (q, k, v)]
+    before = split_terms.launches
+    terms = split_terms(*rows, head_dim=d)
+    torch.cuda.synchronize()
+    assert split_terms.launches == before + 1
+    for x, t in zip(rows, terms):
+        assert t.shape == (3, *x.shape) and t.dtype == torch.bfloat16 and t.is_contiguous()
+        assert torch.equal(t, split_terms_plain(x))
 
 
 def test_autograd_guard_names_the_kernel():
