@@ -24,49 +24,86 @@
 // per d that a caller asks for (ModelConfig's hidden_size / num_heads): any
 // multiple of 8 from 8 to 128. Every size below follows d: the 16-lane
 // k-steps of QK^T, ceil(d / 16); the PV product, m64n{16 ceil(d / 16)}k16;
-// the output accumulators and the output box (d lanes); the K/V ring's
-// stage size and its stage count, four where shared memory holds them
-// (two at d 128, three at 96-112). When d is not a multiple of 16 (8, 24,
-// 40, ...) the last 16-lane box of a head would read 8 lanes of the next
-// head, so q, k and v are then read through 4-D tensor maps with the head
-// as its own axis (lanes-in-head of extent d, head, row, batch), whose
-// out-of-bounds fill gives zeros past lane d: they add nothing to QK^T,
-// and PV's columns past d are never stored. At d 48 the tiles are those
-// the note below describes.
+// the output accumulators and the output box (d lanes); the tiles' swizzle;
+// the K/V ring's stage size and stage count; whether the block has a
+// producer warp.
 //
 // Bound on the H100 at the davis_demo shape (12, 2400, 1152) bf16: 106 GFLOP
 // of QK^T and PV (0.107 ms at the bf16 tensor-core peak) and 553 M
 // exponentials (0.132 ms on the special-function units, 16 per clock per
 // SM at the highest SM clock, 1.98 GHz), against 88 MB of input and output:
 // bound by the exponentials, so the softmax has to run beside the products,
-// not after them. K3 at (96, 2400, 48) does the same work.
+// not after them. K3 at (96, 2400, 48) does the same work. At d 128 the
+// products bound it (0.286 ms).
 //
 // bf16 (the production path), laid out for Hopper: one block per (128-query
-// tile, head, batch row) with one producer warp and two consumer
-// warpgroups of 64 queries. The producer loads Q once and streams 128-key
-// tiles of K and V through a four-stage shared-memory ring with TMA
-// (cp.async.bulk.tensor over 3-D tensor maps of (batch, row, lane); rows
+// tile, head, batch row) with two consumer warpgroups of 64 queries. Q is
+// loaded once, each warpgroup's 64 rows apart; 128-key tiles of K and V
+// stream through a shared-memory ring with TMA (cp.async.bulk.tensor; rows
 // past N or Nk arrive as zeros and never cross into the next batch row),
-// full/empty mbarriers per stage. A head of 48 lanes is 96 bytes, too narrow
-// for the usual 128-byte swizzle, so every tile is three boxes of 16 lanes
-// (ceil(d / 16) in general) with the 32-byte swizzle, one per k-step. QK^T is
-// wgmma m64n128k16 with Q and K from shared memory; PV is wgmma m64n48k16
-// (m64n{16 ceil(d / 16)}k16) with P from registers (the QK^T
-// accumulators repacked to bf16) and V from shared memory with the
-// transpose bit, so V is never transposed by hand. Each warpgroup issues tile
-// j+1's QK^T and tile j's PV together and runs tile j+1's softmax while PV
-// runs; the two warpgroups take turns at their exponentials (named
-// barriers), which measured faster than letting them contend. The
-// exponentials are ex2.approx.ftz with scale * log2(e) folded into one FMA
-// when the tile has no masked or missing key. Each warpgroup stages its
-// output in shared memory and writes it with one TMA store. At 2.5x its
-// bound, what still limits it is open (PERF.md): clock64 phase timings of a
+// full/empty mbarriers per stage. A tile is a row of boxes as wide as the
+// widest swizzle whose lanes divide d: 64 lanes (128 bytes) at d 64 and
+// 128, 32 lanes (64 bytes) at d 32 and 96, else 16 (32 bytes; d 48's 96-byte
+// head allows no more). TMA's time goes with the rows it copies more than
+// with their bytes: a copy of this kernel whose loop only streams K and V
+// took 0.61 ms at (12, 2400, 1152) with d 128 in 32-byte rows and 0.22 ms
+// in 128-byte rows (NVIDIA H100 80GB HBM3, 700 W; scripts/
+// torch_attention_ab.py on edited copies, PERF.md). One copy brings a
+// whole Q, K or V tile: the tensor maps are 4-D, (box lanes, row, box,
+// batch), with a head's boxes one after another on their own axis. Where
+// d is not a multiple of
+// 16 (8, 24, 40, ...) the last 16-lane box of a head would read 8 lanes of
+// the next head, so q, k and v are then read a box at a time through maps
+// with the head as its own axis (lanes-in-head of extent d, head, row,
+// batch), whose out-of-bounds fill gives zeros past lane d: they add
+// nothing to QK^T, and PV's columns past d are never stored. QK^T is wgmma
+// m64n128k16 with Q and K from shared memory (K-major: a k-step is 32
+// bytes of a box row); PV is wgmma m64n{16 ceil(d / 16)}k16 with P from
+// registers (the QK^T accumulators repacked to bf16) and V from shared
+// memory with the transpose bit (MN-major), so V is never transposed by
+// hand. Each warpgroup issues tile j+1's QK^T and tile j's PV together and
+// runs tile j+1's softmax while PV runs; the two warpgroups take turns at
+// their exponentials (named barriers), which measured faster than letting
+// them contend. The exponentials are ex2.approx.ftz with scale * log2(e)
+// folded into one FMA on a tile whose 128 keys are all live. Each
+// warpgroup stages its output in its own Q boxes, dead after its last
+// QK^T, and writes it with one TMA store. At d 48, 2.5x its bound, what
+// still limits it is open (PERF.md): clock64 phase timings of a
 // development copy showed each warpgroup spending longer in its
 // exponentials than the units' rate allows and waiting on the issue of its
-// products, with neither the loads nor the tensor cores saturated. With a
-// key mask every tile takes the general softmax path and loads its mask
-// bytes per key: 0.54 ms at the davis_demo shape (PERF.md), which no
-// davis_demo path runs (one window, no mask).
+// products.
+//
+// Per width: a consumer thread holds the tile's 64 logits, 32 registers of
+// P and d / 2 output accumulators. Without a key mask up to d 64, with one
+// (the plan's walk and bits) up to d 40, they fit in the 168 registers a
+// thread of a nine-warp block may hold, so warp 8 is a producer that
+// issues every copy. Beyond, they do not (ptxas spilled, and from d 88
+// serialised the wgmma, C7512), so the block is the eight consumer warps,
+// which may hold 255. Then warpgroup 1's first thread (thread 128) issues Q and
+// the first tiles before its loop, and each later tile as soon as its
+// stage is free: warpgroup 1 takes its turn at the exponentials second, so
+// it frees each stage last and seldom waits for the other warpgroup. The
+// ring has four stages to d 96, three from d 104. The stage count and
+// whether a key mask is passed are template arguments: three
+// instantiations, unmasked, masked, and masked on a two-stage ring. (The
+// stage count as a kernel argument made the masked route 4-23 % slower on
+// an NVIDIA H100 80GB HBM3 at 700 W, as a division or as a choice of two:
+// scripts/torch_attention_variants.py, PERF.md.)
+//
+// Key mask: each block first reads the (Nk,) mask, 32 bytes a thread, into
+// a plan in shared memory: the mask as bits, 128 a tile, laid out so that
+// a thread reads its 32 keys of a tile as one word, and the walk, the
+// tiles that hold a live key in order, each marked full when all 128 of
+// its keys are live. The copies and the consumers follow the same walk: a
+// position's stage and parity follow the position, not the tile. A dead
+// tile is neither loaded nor computed, which is exact: for a row with any
+// live key a masked key's weight 2^(-1e30 - m) is 0 in float32. A full tile
+// takes the fast softmax; any other (a ragged last tile among them) the
+// general one, with its bits from shared memory. With no live key anywhere
+// every tile is walked, none full, so each query averages all Nk values;
+// keys past Nk stay -inf. The plan takes 20 bytes a tile beside the ring;
+// where it would not fit, the launch takes two stages (beyond about 12,500
+// keys at d 120-128, 65,000 at d 88-96).
 //
 // float32 (parity runs, compute_dtype "float32"): the same pipeline on
 // three-term bf16 products. On this card a float32-accurate product costs
@@ -101,14 +138,13 @@
 //   tests/test_torch_kernels.py's comparison with float64 on peaked inputs.
 // The float32 kernel needs more registers a thread than the bf16 one: the
 // tile's logits, three P terms and two output accumulators, 168 values at
-// d 128. A block of nine warps or more caps a thread at 168 registers
-// (CUDA 12.8's ptxas keeps that one budget for the whole kernel whatever
-// setmaxnreg asks, so a producer warpgroup that hands its registers to
-// the consumers spilled from d 56), so the kernel has no producer warp:
-// its eight warps may hold 255 registers each, and thread 0 issues the
-// copies between its own tiles. Tiles are 64 keys (32 from d 104, where three terms of 64-key
+// d 128. As in the bf16 kernel a nine-warp block caps a thread at 168
+// registers (ptxas keeps that budget whatever setmaxnreg asks), so from
+// d 56 it has no producer warp and thread 0 issues the copies between its
+// own tiles. Tiles are 64 keys (32 from d 104, where three terms of 64-key
 // K and V tiles beside Q's terms no longer fit twice in shared memory),
-// with as many stages as fit, up to four. Its output is written from
+// with as many stages as fit, up to four. It reads a key mask per key from
+// device memory and walks every tile. Its output is written from
 // registers (float2 per thread, whole 32-byte sectors), with no staging.
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
@@ -134,7 +170,6 @@ constexpr int kWarpgroups = 2;                 // consumer warpgroups of 64 quer
 constexpr int kTileQ = 64 * kWarpgroups;       // queries per block
 constexpr int kTileK = 128;                    // keys per tile
 constexpr int kConsumers = 128 * kWarpgroups;
-constexpr int kThreads = kConsumers + 32;      // and one producer warp
 constexpr int kBox = 16;                       // lanes per TMA box: one wgmma k-step
 constexpr int kBoxes = (kHeadDim + kBox - 1) / kBox;  // 3 at d 48
 constexpr int kDPad = kBoxes * kBox;           // PV's width: d rounded up to 16
@@ -142,26 +177,49 @@ constexpr bool kSplitHeads = kHeadDim % kBox != 0;  // 4-D tensor maps (header n
 constexpr int kRowBytes = kBox * 2;            // 32: a box row, one 32-byte swizzle row
 constexpr int kAcc = kTileK / 2;               // QK^T accumulators per thread
 constexpr int kOut = kDPad / 2;                // PV accumulators per thread
-// K/V tiles in the shared-memory ring: four where they fit beside Q, the
-// output staging and 2 KB of barriers and alignment slack
+// A producer warp where an instantiation's consumers fit in the 168
+// registers a thread of nine warps may hold, by ptxas's counts: without a
+// key mask to d 64, with one to d 40 (header note); else the block is the
+// eight consumer warps, which may hold 255.
+template <bool Masked>
+constexpr bool kProducer = kHeadDim <= (Masked ? 40 : 64);
+template <bool Masked>
+constexpr int kThreads = kConsumers + (kProducer<Masked> ? 32 : 0);
+// the thread that issues every copy: the producer warp's lane 0, or
+// warpgroup 1's first thread (warpgroup 1 takes its turns second, so it
+// frees each stage last)
+template <bool Masked>
+constexpr int kIssuer = kProducer<Masked> ? kConsumers : 128;
+// Shared memory, from a 1024-byte aligned base: Q (each warpgroup's 64 rows
+// as kSwBoxes boxes; its output is staged there once its last QK^T is
+// done), the K/V ring of Stages stages (a template argument: four where
+// they fit, two where a key mask's plan would not fit beside them), then
+// the barriers and, with a key mask, the plan. Every box has rows of one
+// swizzle span (the layout TMA writes and wgmma reads).
 constexpr int kSmemMax = 232448;
-constexpr int kStageBytes = 2 * kBoxes * kTileK * kRowBytes;
-constexpr int kFitStages =
-    (kSmemMax - 2048 - kBoxes * kTileQ * kRowBytes - kWarpgroups * 64 * kHeadDim * 2) /
-    kStageBytes;
-constexpr int kStages = kFitStages < 4 ? kFitStages : 4;
-static_assert(kStages >= 2, "the K/V ring needs two stages");
-
-// Every tile is a set of kBoxes boxes of 16 lanes (32-byte rows, 32-byte
-// swizzle, the layout TMA writes and wgmma reads), one box per k-step of
-// QK^T and one 16-lane column block of V.
-struct __align__(1024) SmemBf16 {
-  __nv_bfloat16 q[kBoxes][kTileQ * kBox];
-  __nv_bfloat16 k[kStages][kBoxes][kTileK * kBox];
-  __nv_bfloat16 v[kStages][kBoxes][kTileK * kBox];
-  __nv_bfloat16 o[kWarpgroups][64 * kHeadDim];  // row-major, for the TMA store
-  uint64_t full[kStages], empty[kStages], q_full;
+// The tiles' swizzle: the widest of 128, 64 and 32 bytes whose box of
+// kSwLanes lanes divides d, so that TMA copies rows of that many bytes
+// (header note); 32 bytes at d 48.
+constexpr int kSwLanes = kHeadDim % 64 == 0 ? 64 : (kHeadDim % 32 == 0 ? 32 : kBox);
+constexpr int kSwBytes = 2 * kSwLanes;         // a box row, one swizzle span
+constexpr int kSwBoxes = kDPad / kSwLanes;     // boxes of a tile
+constexpr int kSwSteps = kSwLanes / kBox;      // k-steps of QK^T in a box
+constexpr uint64_t kSwLayout = kSwBytes == 128 ? 1 : (kSwBytes == 64 ? 2 : 3);  // wgmma's code
+constexpr int kQBytes = kWarpgroups * 64 * kDPad * 2;
+constexpr int kKVTile = kTileK * kDPad * 2;    // a K or V tile
+constexpr int kStageBytes = 2 * kKVTile;
+constexpr int kMaxStages = 4;
+struct Bf16Tail {
+  uint64_t full[kMaxStages], empty[kMaxStages], q_full;
+  int n_walk;  // key tiles on the walk
+  float fill;  // the logit of a key the plan marks (PlanBits)
 };
+constexpr int kTailBytes = (static_cast<int>(sizeof(Bf16Tail)) + 15) / 16 * 16;
+constexpr int kPlanBytesPerTile = 16 + 4;      // 128 live bits and one walk entry
+constexpr int kFitStages = (kSmemMax - 1024 - kQBytes - kTailBytes) / kStageBytes;
+constexpr int kStages = kFitStages < kMaxStages ? kFitStages : kMaxStages;
+static_assert(kStages >= 2, "the K/V ring needs two stages");
+constexpr uint32_t kFullTile = 1u << 31;       // walk entry: tile index | kFullTile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -215,15 +273,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// The same over a (batch, row, head, lane-in-head) tensor map: lanes past
-// the head's d arrive as zeros too.
+// The same over a 4-D tensor map, at coordinates c0 (innermost) to c3: a
+// (batch, row, head, lane-in-head) map, whose lanes past the head's d
+// arrive as zeros too, or a (batch, 16-lane block, row, lane) map.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int lane, int head, int row, int batch) {
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(lane), "r"(head), "r"(row),
-      "r"(batch)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -370,43 +429,87 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
               BT_F8(32), BT_F8(40), BT_F8(48), BT_F8(56))
 }
 
-// S = Q K^T for one warpgroup's 64 queries and one key tile: kBoxes k-steps.
-__device__ __forceinline__ void issue_qk(float (&s)[kAcc], uint32_t q_addr, uint32_t k_addr) {
-#pragma unroll
-  for (int x = 0; x < kBoxes; ++x)
-    wgmma_m64n128k16_ss(s, sw32_desc(q_addr + x * kTileQ * kRowBytes, 16, 8 * kRowBytes),
-                        sw32_desc(k_addr + x * kTileK * kRowBytes, 16, 8 * kRowBytes), x);
+// wgmma shared-memory descriptor of an operand with the bf16 tiles'
+// swizzle (kSwLayout), fields as sw32_desc's.
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (kSwLayout << 62);
 }
 
-// O += P V: P from registers, V (keys x kDPad lanes) with the transpose bit.
+// S = Q K^T for one warpgroup's 64 queries (its kSwBoxes boxes of 64 rows)
+// and one key tile: kBoxes k-steps, kSwSteps of 32 bytes in each box row,
+// K-major with 8-row groups kSwBytes * 8 apart.
+__device__ __forceinline__ void issue_qk(float (&s)[kAcc], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int x = 0; x < kBoxes; ++x) {
+    const uint32_t step = (x % kSwSteps) * 32;
+    wgmma_m64n128k16_ss(
+        s, sw_desc(q_addr + (x / kSwSteps) * 64 * kSwBytes + step, 16, 8 * kSwBytes),
+        sw_desc(k_addr + (x / kSwSteps) * kTileK * kSwBytes + step, 16, 8 * kSwBytes), x);
+  }
+}
+
+// O += P V: P from registers, V (keys x kDPad lanes) with the transpose bit:
+// MN-major, boxes of kSwLanes lanes kTileK rows apart, 8-key groups
+// kSwBytes * 8 apart.
 __device__ __forceinline__ void issue_pv(float (&o)[kOut], const uint32_t (&p)[kTileK / 16][4],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < kTileK / 16; ++kk)
-    wgmma_pv<kDPad>(o, p[kk], sw32_desc(v_addr + kk * 16 * kRowBytes, kTileK * kRowBytes,
-                                        8 * kRowBytes));
+    wgmma_pv<kDPad>(o, p[kk], sw_desc(v_addr + kk * 16 * kSwBytes, kTileK * kSwBytes,
+                                      8 * kSwBytes));
 }
+
+// The general softmax's bias of key 8i + 2t + j of a tile (the accumulator
+// layout below), bias(i, j): 0 for a live key, whose scaled logit is kept,
+// else the logit the key takes. MaskBytes (the float32 kernel): -inf past
+// Nk (the tile's keys from `valid` on), -1e30 where the (Nk,) mask in
+// device memory is 0 (nowhere without a mask). InRange (the bf16 kernel
+// without a mask, on a ragged last tile): -inf past Nk. PlanBits (the bf16
+// kernel with a mask): this thread's 32 keys of the tile from the plan,
+// key 8i + 2t + j as bit 2i + j, 0 where the bit is set and -inf where it
+// is not; a walked tile holds a live key, so a masked key's weight is 0
+// either way. On the walk of a mask with no live key the bits mark the
+// keys below Nk, which take `fill`, -1e30.
+struct MaskBytes {
+  const uint8_t* mask;
+  int k0, valid, t;
+  __device__ __forceinline__ float bias(int i, int j) const {
+    const int k = 8 * i + 2 * t + j;
+    return k >= valid ? -INFINITY : (mask == nullptr || mask[k0 + k] != 0 ? 0.f : -1e30f);
+  }
+};
+struct InRange {
+  int valid, t;
+  __device__ __forceinline__ float bias(int i, int j) const {
+    return 8 * i + 2 * t + j >= valid ? -INFINITY : 0.f;
+  }
+};
+struct PlanBits {
+  uint32_t w;
+  float fill;
+  __device__ __forceinline__ float bias(int i, int j) const {
+    return (w >> (2 * i + j)) & 1u ? fill : -INFINITY;
+  }
+};
 
 // Online softmax of one key tile of 2 NA keys on its NA QK^T accumulators
 // (NA = kAcc in the bf16 kernel). This thread holds
-// rows g and g+8 of its warp's 16 and, for i < NA/4, keys k0 + 8i + 2t and
-// k0 + 8i + 2t + 1: s[4i], s[4i+1] of row g and s[4i+2], s[4i+3] of row g+8.
-// With x = logit * scale * log2(e) (-1e30 for a masked key, -inf past Nk),
-// s becomes 2^(x - m) with m the running row maximum, and corr the factor
-// by which the earlier sums shrink. `fast`: every key of the tile is live
-// and scale > 0, so the maximum is taken on the raw logits and the scale is
-// folded into one FMA per exponential; the general path scales first, since
-// folding -1e30 into an FMA would leave its product's rounding error (about
-// 1e22) in the exponent of an all-masked row. The general path measured
-// 16 % slower on full tiles at the davis_demo shape (PERF.md). The
-// exponentials run in turns with the other warpgroup (`last`: this
-// warpgroup's final turn).
-template <int NA>
+// rows g and g+8 of its warp's 16 and, for i < NA/4, keys 8i + 2t and
+// 8i + 2t + 1 of the tile: s[4i], s[4i+1] of row g and s[4i+2], s[4i+3] of
+// row g+8. With x = logit * scale * log2(e), or the key's bias where that
+// is not 0 (`keys`, above: -1e30 or -inf), s becomes 2^(x - m)
+// with m the running row maximum, and corr the factor by which the earlier
+// sums shrink. `fast`: every key of the tile is live and scale > 0, so the
+// maximum is taken on the raw logits and the scale is folded into one FMA
+// per exponential; the general path scales first, since folding -1e30 into
+// an FMA would leave its product's rounding error (about 1e22) in the
+// exponent of an all-masked row. The exponentials run in turns with the
+// other warpgroup (`last`: this warpgroup's final turn).
+template <int NA, typename Keys>
 __device__ __forceinline__ void softmax_tile(float (&s)[NA], float& m_a, float& m_b, float& l_a,
                                              float& l_b, float& corr_a, float& corr_b, float c,
-                                             bool fast, int k0, int Nk,
-                                             const uint8_t* __restrict__ key_mask, int t, int wg,
-                                             bool last) {
+                                             bool fast, const Keys& keys, int wg, bool last) {
   float mx_a = -INFINITY, mx_b = -INFINITY;
   if (fast) {
     float pa[4], pb[4];  // four partial maxima per row: short dependency chains
@@ -427,9 +530,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NA], float& m_a, float& 
     for (int i = 0; i < NA / 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int key = k0 + 8 * i + 2 * t + j;
-        const float bias = key >= Nk ? -INFINITY
-                                     : ((key_mask != nullptr && key_mask[key] == 0) ? -1e30f : 0.f);
+        const float bias = keys.bias(i, j);
         s[4 * i + j] = bias == 0.f ? s[4 * i + j] * c : bias;
         s[4 * i + 2 + j] = bias == 0.f ? s[4 * i + 2 + j] * c : bias;
         mx_a = fmaxf(mx_a, s[4 * i + j]);
@@ -442,7 +543,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NA], float& m_a, float& 
     mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
     mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
   }
-  // finite: every tile holds a key below Nk, live (x) or masked (-1e30)
+  // finite: every tile of a walk holds a live key or, with none anywhere,
+  // keys below Nk at -1e30
   const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
   corr_a = ex2(m_a - mn_a);
   corr_b = ex2(m_b - mn_b);
@@ -489,12 +591,93 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[kTileK / 16][4], const floa
   }
 }
 
+// The key mask's plan (header note), built by the whole block: the (Nk,)
+// mask as bits, tile j's 128 in live[j], word t holding the keys thread t
+// of a warp owns (PlanBits; zero past Nk), then the walk: in order, the
+// index of every tile with a live key, with kFullTile where all 128 of its
+// keys are live. With no live key anywhere every tile is on the walk, none
+// full, with the keys below Nk marked and tl.fill -1e30, so that each
+// query averages all Nk values. Returns the walk's length (tl.n_walk).
+__device__ __forceinline__ int build_plan(const uint8_t* __restrict__ key_mask, int Nk,
+                                          int n_tiles, uint4* live, uint32_t* walk,
+                                          Bf16Tail& tl) {
+  // one word a thread: 32 mask bytes, two in each 8-key group of the tile
+  uint32_t* const words = reinterpret_cast<uint32_t*>(live);
+  for (int c = threadIdx.x; c < 4 * n_tiles; c += blockDim.x) {
+    const int k0 = (c >> 2) * kTileK + 2 * (c & 3);
+    uint32_t bits = 0;
+#pragma unroll
+    for (int i = 0; i < kTileK / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = k0 + 8 * i + j;
+        if (key < Nk && key_mask[key] != 0) bits |= 1u << (2 * i + j);
+      }
+    words[c] = bits;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int j0 = 0; j0 < n_tiles; j0 += 32) {
+      const int j = j0 + lane;
+      int live_keys = 0;
+      if (j < n_tiles) {
+        const uint4 w = live[j];
+        live_keys = __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+      }
+      const uint32_t on = __ballot_sync(0xffffffffu, live_keys > 0);
+      if (live_keys > 0)
+        walk[n + __popc(on & ((1u << lane) - 1))] = j | (live_keys == kTileK ? kFullTile : 0u);
+      n += __popc(on);
+    }
+    const bool none = n == 0;
+    if (none) {
+      for (int j = lane; j < n_tiles; j += 32) walk[j] = j;
+      for (int c = lane; c < 4 * n_tiles; c += 32) {
+        const int k0 = (c >> 2) * kTileK + 2 * (c & 3);
+        uint32_t bits = 0;
+        for (int i = 0; i < kTileK / 8; ++i)
+          for (int j = 0; j < 2; ++j)
+            if (k0 + 8 * i + j < Nk) bits |= 1u << (2 * i + j);
+        words[c] = bits;
+      }
+      n = n_tiles;
+    }
+    if (lane == 0) {
+      tl.n_walk = n;
+      tl.fill = none ? -1e30f : 0.f;
+    }
+  }
+  __syncthreads();
+  return tl.n_walk;
+}
+
+// The general softmax's key biases of walk entry e's tile for thread t:
+// from the plan with a key mask (every key live on a full tile), else the
+// keys below Nk.
+template <bool Masked>
+__device__ __forceinline__ auto tile_keys(const Bf16Tail& tl, const uint4* live, uint32_t e,
+                                          int Nk, int t) {
+  if constexpr (Masked) {
+    if (e & kFullTile) return PlanBits{~0u, 0.f};
+    return PlanBits{reinterpret_cast<const uint32_t*>(live + (e & ~kFullTile))[t], tl.fill};
+  } else {
+    return InRange{Nk - static_cast<int>(e & ~kFullTile) * kTileK, t};
+  }
+}
+
 // One block per (128-query tile, head, batch row): warps 0-7 are two
-// consumer warpgroups of 64 queries each, warp 8 the producer. The producer
-// loads Q once and streams K and V tiles through the ring (full/empty
-// mbarriers). Each consumer warpgroup issues tile j+1's QK^T, then tile j's
-// PV, and runs tile j+1's softmax while PV is on the tensor cores.
-__global__ void __launch_bounds__(kThreads, 1)
+// consumer warpgroups of 64 queries each; warp 8 is the producer where the
+// instantiation has one (kProducer), else thread 128 issues the copies
+// between its own tiles. Q
+// is loaded once; the key tiles of the walk (every tile, or with a key mask
+// those of the plan) stream through the ring (full/empty mbarriers: a walk
+// position's stage and parity follow the position, not the tile). Each
+// consumer warpgroup issues position p+1's QK^T, then p's PV, and runs
+// p+1's softmax while PV is on the tensor cores.
+template <int Stages, bool Masked>
+__global__ void __launch_bounds__(kThreads<Masked>, 1)
     attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                 const __grid_constant__ CUtensorMap map_k,
                                 const __grid_constant__ CUtensorMap map_v,
@@ -502,51 +685,71 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const uint8_t* __restrict__ key_mask, int N, int Nk,
                                 float scale) {
   extern __shared__ uint8_t smem_raw[];
-  SmemBf16& sm =
-      *reinterpret_cast<SmemBf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  uint8_t* const base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const ring = base + kQBytes;
+  Bf16Tail& tl = *reinterpret_cast<Bf16Tail*>(ring + Stages * kStageBytes);
+  uint4* const live = reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(&tl) + kTailBytes);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTileQ;
   const int n_tiles = (Nk + kTileK - 1) / kTileK;
+  uint32_t* const walk = reinterpret_cast<uint32_t*>(live + n_tiles);
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(&sm.full[st], 1);
-      mbar_init(&sm.empty[st], kConsumers / 32);  // lane 0 of each consumer warp
+  // head h's kSwBoxes boxes of `rows` rows from `row` into dst, box after
+  // box: one copy over the lane blocks' map, or one a box over the heads'
+  // map when d is not a multiple of 16
+  const auto load = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int row, int rows) {
+    if constexpr (kSplitHeads) {
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load_4d(dst + x * rows * kRowBytes, map, bar, x * kBox, h, row, b);
+    } else {
+      tma_load_4d(dst, map, bar, 0, row, h * kSwBoxes, b);
     }
-    mbar_init(&sm.q_full, 1);
+  };
+  // walk entry p: a tile index, with kFullTile where every key is live
+  const auto entry = [&](int p) -> uint32_t {
+    return Masked ? walk[p]
+                  : static_cast<uint32_t>(p) | ((p + 1) * kTileK <= Nk ? kFullTile : 0u);
+  };
+  // K and V of walk position p into its stage
+  const auto load_tile = [&](int p) {
+    const int st = p % Stages, row = static_cast<int>(entry(p) & ~kFullTile) * kTileK;
+    uint8_t* const stage = ring + st * kStageBytes;
+    mbar_arrive_expect_tx(&tl.full[st], kStageBytes);
+    load(stage, &map_k, &tl.full[st], row, kTileK);
+    load(stage + kKVTile, &map_v, &tl.full[st], row, kTileK);
+  };
+
+  if (threadIdx.x == kIssuer<Masked>) {
+    for (int st = 0; st < Stages; ++st) {
+      mbar_init(&tl.full[st], 1);
+      mbar_init(&tl.empty[st], kConsumers / 32);  // lane 0 of each consumer warp
+    }
+    mbar_init(&tl.q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_arrive_expect_tx(&tl.q_full, kQBytes);
+    for (int w = 0; w < kWarpgroups; ++w)
+      load(base + w * 64 * kDPad * 2, &map_q, &tl.q_full, q0 + 64 * w, 64);
   }
   __syncthreads();
+  // with a key mask, the plan, while Q arrives
+  const int n_walk = Masked ? build_plan(key_mask, Nk, n_tiles, live, walk, tl) : n_tiles;
 
-  if (warp == kConsumers / 32) {  // producer: one thread issues every copy
-    // box x (lanes 16x .. 16x + 15) of head h in `row`'s tile
-    const auto load = [&](void* dst, const CUtensorMap* map, uint64_t* bar, int x, int row) {
-      if constexpr (kSplitHeads)
-        tma_load_4d(dst, map, bar, x * kBox, h, row, b);
-      else
-        tma_load(dst, map, bar, h * kHeadDim + x * kBox, row, b);
-    };
-    if (lane == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, kBoxes * kTileQ * kRowBytes);
-      for (int x = 0; x < kBoxes; ++x) load(sm.q[x], &map_q, &sm.q_full, x, q0);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % kStages;
-        if (j >= kStages) mbar_wait(&sm.empty[st], (j / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[st], kStageBytes);
-        for (int x = 0; x < kBoxes; ++x) {
-          load(sm.k[st][x], &map_k, &sm.full[st], x, j * kTileK);
-          load(sm.v[st][x], &map_v, &sm.full[st], x, j * kTileK);
-        }
+  if (kProducer<Masked> && warp == kConsumers / 32) {
+    if (lane == 0)
+      for (int p = 0; p < n_walk; ++p) {
+        if (p >= Stages) mbar_wait(&tl.empty[p % Stages], (p / Stages - 1) & 1);
+        load_tile(p);
       }
-    }
     return;
   }
+  if (!kProducer<Masked> && threadIdx.x == kIssuer<Masked>)
+    for (int p = 0; p < Stages && p < n_walk; ++p) load_tile(p);
 
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
   const float c = scale * kLog2e;
-  const bool fast_ok = key_mask == nullptr && c > 0.f;
-  const uint32_t q_addr = smem_u32(sm.q[0]) + wg * 64 * kRowBytes;
+  uint8_t* const q_wg = base + wg * 64 * kDPad * 2;  // this warpgroup's Q boxes
+  const uint32_t q_addr = smem_u32(q_wg), ring_addr = smem_u32(ring);
 
   float o[kOut];
 #pragma unroll
@@ -556,36 +759,43 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, corr_a, corr_b;
 
   if (wg == 1) turn_pass(wg);  // warpgroup 0 takes the first turn
-  mbar_wait(&sm.q_full, 0);
-  mbar_wait(&sm.full[0], 0);
+  mbar_wait(&tl.q_full, 0);
+  mbar_wait(&tl.full[0], 0);
   wgmma_fence();
-  issue_qk(s, q_addr, smem_u32(sm.k[0][0]));
+  issue_qk(s, q_addr, ring_addr);
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(s);
-  softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && kTileK <= Nk, 0, Nk, key_mask,
-               t, wg, n_tiles == 1);
+  uint32_t e = entry(0);
+  softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, (e & kFullTile) && c > 0.f,
+               tile_keys<Masked>(tl, live, e, Nk, t), wg, n_walk == 1);
   pack_p(p, s);
 
-  for (int j = 0; j + 1 < n_tiles; ++j) {
-    const int st = j % kStages, sn = (j + 1) % kStages;
-    mbar_wait(&sm.full[sn], ((j + 1) / kStages) & 1);
+  for (int j = 0; j + 1 < n_walk; ++j) {
+    const int st = j % Stages, sn = (j + 1) % Stages;
+    mbar_wait(&tl.full[sn], ((j + 1) / Stages) & 1);
     reg_fence(o);
     reg_fence(p);
     wgmma_fence();
-    issue_qk(s, q_addr, smem_u32(sm.k[sn][0]));
+    issue_qk(s, q_addr, ring_addr + sn * kStageBytes);
     wgmma_commit();
-    issue_pv(o, p, smem_u32(sm.v[st][0]));
+    issue_pv(o, p, ring_addr + st * kStageBytes + kKVTile);
     wgmma_commit();
-    wgmma_wait<1>();  // QK^T of tile j+1 is done; PV of tile j may run on
+    wgmma_wait<1>();  // QK^T of position j+1 is done; PV of j may run on
     reg_fence(s);
-    const int k0 = (j + 1) * kTileK;
-    softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && k0 + kTileK <= Nk, k0, Nk,
-                 key_mask, t, wg, j + 2 == n_tiles);
+    e = entry(j + 1);
+    softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, (e & kFullTile) && c > 0.f,
+                 tile_keys<Masked>(tl, live, e, Nk, t), wg, j + 2 == n_walk);
     wgmma_wait<0>();
     reg_fence(o);
     reg_fence(p);
-    if (lane == 0) mbar_arrive(&sm.empty[st]);  // tile j's K and V are read
+    if (lane == 0) mbar_arrive(&tl.empty[st]);  // position j's K and V are read
+    if constexpr (!kProducer<Masked>) {  // both warpgroups are past position j: j + Stages
+      if (threadIdx.x == kIssuer<Masked> && j + Stages < n_walk) {
+        mbar_wait(&tl.empty[st], (j / Stages) & 1);
+        load_tile(j + Stages);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kOut / 4; ++i) {
       o[4 * i] *= corr_a;
@@ -598,21 +808,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   reg_fence(o);
   reg_fence(p);
   wgmma_fence();
-  issue_pv(o, p, smem_u32(sm.v[(n_tiles - 1) % kStages][0]));
+  issue_pv(o, p, ring_addr + ((n_walk - 1) % Stages) * kStageBytes + kKVTile);
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(o);
 
-  // normalise, stage this warpgroup's 64 x d outputs in shared memory and
-  // store them with one TMA box (rows past N are dropped by the copy; PV's
-  // columns past d are not staged)
+  // normalise, stage this warpgroup's 64 x d outputs row-major in its Q
+  // boxes (dead once all four warps are past its last QK^T) and store them
+  // with one TMA box (rows past N are dropped by the copy; PV's columns
+  // past d are not staged)
 #pragma unroll
   for (int sh = 1; sh <= 2; sh <<= 1) {
     l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
   }
   const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-  __nv_bfloat16* ob = sm.o[wg] + (wl * 16 + g) * kHeadDim + 2 * t;
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  __nv_bfloat16* ob =
+      reinterpret_cast<__nv_bfloat16*>(q_wg) + (wl * 16 + g) * kHeadDim + 2 * t;
 #pragma unroll
   for (int i = 0; i < kHeadDim / 8; ++i) {
     *reinterpret_cast<__nv_bfloat162*>(ob + 8 * i) =
@@ -623,7 +836,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
   if (wl == 0 && lane == 0 && q0 + wg * 64 < N)
-    tma_store(&map_o, sm.o[wg], h * kHeadDim, q0 + wg * 64, b);
+    tma_store(&map_o, q_wg, h * kHeadDim, q0 + wg * 64, b);
 }
 
 // ------------------------------------------------------------- float32 as three bf16 terms
@@ -848,8 +1061,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(s);
-  softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && kF32TileK <= Nk, 0, Nk,
-               key_mask, t, wg, n_tiles == 1);
+  softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && kF32TileK <= Nk,
+               MaskBytes{key_mask, 0, Nk, t}, wg, n_tiles == 1);
   pack_p3(p, s);
 
   for (int j = 0; j + 1 < n_tiles; ++j) {
@@ -865,8 +1078,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     wgmma_wait<1>();  // QK^T of tile j+1 is done; PV of tile j may run on
     reg_fence(s);
     const int k0 = (j + 1) * kF32TileK;
-    softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && k0 + kF32TileK <= Nk, k0,
-                 Nk, key_mask, t, wg, j + 2 == n_tiles);
+    softmax_tile(s, m_a, m_b, l_a, l_b, corr_a, corr_b, c, fast_ok && k0 + kF32TileK <= Nk,
+                 MaskBytes{key_mask, k0, Nk - k0, t}, wg, j + 2 == n_tiles);
     wgmma_wait<0>();
     reg_fence(ot);
     reg_fence(p);
@@ -976,24 +1189,67 @@ bool bf16_map(CUtensorMap* map, const void* base, int lanes, int rows, int batch
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A bf16 tensor map over (batch, rows, lanes), lanes a multiple of
+// kSwLanes, as blocks of kSwLanes lanes: dims (kSwLanes, rows, lanes /
+// kSwLanes, batch), so that one box of (kSwLanes, box_rows, kSwBoxes) lands
+// as kSwBoxes boxes one after another, as kSwBoxes copies of one box each
+// would, with the tiles' swizzle.
+bool bf16_block_map(CUtensorMap* map, const void* base, int lanes, int rows, int batch,
+                    int stride, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(stride) * 2;
+  const cuuint64_t dims[4] = {kSwLanes, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(lanes / kSwLanes),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {row_bytes, kSwBytes, row_bytes * rows};
+  const cuuint32_t box[4] = {kSwLanes, static_cast<cuuint32_t>(box_rows), kSwBoxes, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = kSwBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : kSwBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const uint8_t* key_mask,
                         void* out, int B, int N, int Nk, int heads, int q_stride, int kv_stride,
                         int o_stride, float scale, cudaStream_t stream) {
   const int C = heads * kHeadDim;
   const int split = kSplitHeads ? heads : 0;  // q, k and v by head (header note)
   CUtensorMap mq, mk, mv, mo;
-  if (!bf16_map(&mq, q, C, N, B, q_stride, kBox, kTileQ, CU_TENSOR_MAP_SWIZZLE_32B, split) ||
-      !bf16_map(&mk, k, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B, split) ||
-      !bf16_map(&mv, v, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B, split) ||
-      !bf16_map(&mo, out, C, N, B, o_stride, kHeadDim, 64, CU_TENSOR_MAP_SWIZZLE_NONE))
+  const bool maps =
+      kSplitHeads
+          ? bf16_map(&mq, q, C, N, B, q_stride, kBox, 64, CU_TENSOR_MAP_SWIZZLE_32B, split) &&
+                bf16_map(&mk, k, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B,
+                         split) &&
+                bf16_map(&mv, v, C, Nk, B, kv_stride, kBox, kTileK, CU_TENSOR_MAP_SWIZZLE_32B,
+                         split)
+          : bf16_block_map(&mq, q, C, N, B, q_stride, 64) &&
+                bf16_block_map(&mk, k, C, Nk, B, kv_stride, kTileK) &&
+                bf16_block_map(&mv, v, C, Nk, B, kv_stride, kTileK);
+  if (!maps || !bf16_map(&mo, out, C, N, B, o_stride, kHeadDim, 64, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(sizeof(SmemBf16)) + 1024;  // + alignment slack
-  const cudaError_t e = cudaFuncSetAttribute(attention_bf16_wgmma_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the ring's stages: kStages, two where a key mask's plan would not fit
+  // beside them (header note); + 1024 bytes of alignment slack
+  const int plan = key_mask != nullptr ? (Nk + kTileK - 1) / kTileK * kPlanBytesPerTile : 0;
+  const auto smem_of = [&](int stages) {
+    return 1024 + kQBytes + stages * kStageBytes + kTailBytes + plan;
+  };
+  const bool full_ring = smem_of(kStages) <= kSmemMax;
+  const int smem = smem_of(full_ring ? kStages : 2);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const auto kernel = key_mask == nullptr ? attention_bf16_wgmma_kernel<kStages, false>
+                      : full_ring         ? attention_bf16_wgmma_kernel<kStages, true>
+                                          : attention_bf16_wgmma_kernel<2, true>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kTileQ - 1) / kTileQ, heads, B);
-  attention_bf16_wgmma_kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, mo, key_mask, N, Nk,
-                                                                scale);
+  kernel<<<grid, key_mask == nullptr ? kThreads<false> : kThreads<true>, smem, stream>>>(
+      mq, mk, mv, mo, key_mask, N, Nk, scale);
   return cudaGetLastError();
 }
 

@@ -127,6 +127,45 @@ def build(items: Iterable[Union[str, Spec]]) -> Dict[str, str]:
     return logs
 
 
+# the attention source's two kernels, whose builds must neither spill nor
+# serialise their wgmma (ptxas_faults)
+ATTENTION_KERNELS = ("attention_bf16_wgmma_kernel", "attention_f32_wgmma_kernel")
+
+
+def ptxas_lines(logs: Dict[str, str]) -> Dict[str, List[Tuple[str, str]]]:
+    """From build()'s logs (ptxas -v), for each build: its register
+    ("Used ..."), spill and C75xx lines, each as (the mangled name of the
+    function the line is about, the line without ptxas's prefix). A C75xx
+    line names its function; the others follow "Function properties for"."""
+    out: Dict[str, List[Tuple[str, str]]] = {}
+    for name, text in logs.items():
+        fn = "?"
+        for ln in text.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for ", 1)[1].strip()
+            elif "spill" in ln or "Used " in ln or "C75" in ln:
+                about = ln.split("function '", 1)[1].split("'")[0] if "function '" in ln else fn
+                out.setdefault(name, []).append(
+                    (about, ln.replace("ptxas info    :", "").strip()))
+    return out
+
+
+def ptxas_faults(logs: Dict[str, str], kernels: Iterable[str]) -> Dict[str, List[str]]:
+    """For each build, the ptxas_lines where one of `kernels` (a part of
+    its mangled name) spills, with nonzero spill bytes, or draws a C75xx
+    advisory (ptxas serialised or fenced its wgmma). Builds without such a
+    line are left out."""
+    kernels = tuple(kernels)
+    faults: Dict[str, List[str]] = {}
+    for name, lines in ptxas_lines(logs).items():
+        for fn, ln in lines:
+            spills = "spill" in ln and (
+                " 0 bytes spill stores" not in ln or " 0 bytes spill loads" not in ln)
+            if (spills or "C75" in ln) and any(k in fn for k in kernels):
+                faults.setdefault(name, []).append(ln[:160])
+    return faults
+
+
 def load(name: str, **widths: int) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu at the given widths, built
     first if needed."""

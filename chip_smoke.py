@@ -7,8 +7,8 @@ Phases, each of which fails the run when it fails:
 
 1. build the hand-written CUDA kernels from batrack_tpu_torch/csrc/ (one
    nvcc per source and width, all started together, every head dim of the
-   attention source among them), failing if a float32 attention build
-   spills or serialises its wgmma (ptxas's output);
+   attention source among them), failing if an attention build's bf16 or
+   float32 kernel spills or serialises its wgmma (ptxas's output);
 2. K1 (correlation windows) and K2 (packed-qkv attention) at the davis_demo
    shapes of the sparse-SLAM path (and the other kernels, below), each
    held against its plain PyTorch version on the same inputs with TF32 off
@@ -51,7 +51,7 @@ Phases, each of which fails the run when it fails:
    error_sum.txt equal at its rounding to eval_metrics recomputed from the
    written trajectory; `cli.run_refine.main` (grid 10, 200 steps) and
    `cli.eval_depth.main` with and without --refined. Then stage 3 at the
-   same shape (T=40, N=400, S=23) on a synthetic results dict: 4 Adam steps
+   same shape (T=40, N=400, S=23) on a synthetic results dict: 2 Adam steps
    in float64 on the card against the CPU within 10x a witness (the CPU
    run of inputs moved by one float64 rounding) and at least 1e-5, and 200
    steps of tests/test_refine.py::test_scale_recovery's configuration in
@@ -87,8 +87,9 @@ Phases, each of which fails the run when it fails:
    of each window's key mask held against the plain versions on the same
    inputs, K1 timed at that shape beside its bound, and K2 with the first
    window's key mask timed beside SDPA with the same boolean mask and the
-   bound. b. The same config with the port's OracleTracker (noise 0, no
-   kernel runs; checked) for 32 frames: the ATE against the scene's poses
+   bound, with its key-tile plan's dead, full and mixed tiles. b. The same
+   config with the port's OracleTracker (noise 0, no kernel runs; checked)
+   for 32 frames: the ATE against the scene's poses
    after Sim(3) alignment under tests/test_slam_e2e.py::test_pose_recovery's
    0.05 and unaligned under twice that (the monocular scale is printed),
    removals, then one flat update on the card against the CPU
@@ -136,7 +137,8 @@ Phases, each of which fails the run when it fails:
    -> run_vis.sh as subprocesses on 16 of phase 10's JPEG frames with its
    ViT-L files, each stage's files checked. Prints each script's seconds
    (and the pose scripts' frames/s), b's frames/s, stage ms and peak
-   memory, and the phase's seconds.
+   memory. b runs in this process, before phase 14; a, c and d run after
+   it, four chains of subprocesses among phase 12's and 13's (below).
 12. the port's measurement entry points, each run once as a subprocess at
    its full configuration, as a user runs it: bench_torch.py and
    bench_torch.py --mesh 1 (davis_demo over 64 frames: frames/s, stage ms
@@ -149,7 +151,7 @@ Phases, each of which fails the run when it fails:
    positive, MFU set on an H100, K1 4 and K2 24 launches per append (K2 on
    the kv= route under the mesh), every other counter 0, and the
    breakdown's 4 K1 launches and I UpdateFormer calls per forward. Prints
-   each script's seconds and reading, and the phase's seconds.
+   each script's seconds and reading.
 13. the port's last two measurement scripts as subprocesses:
    bench_scaling_torch.py at every device count the machine has (1 on one
    card: the SLAM loop and the tracker forward under get_mesh(n), the
@@ -163,7 +165,13 @@ Phases, each of which fails the run when it fails:
    within 1e-4 of its plain version; the tracker's K2 kv= launches per
    forward equal to the count from the code, K1 4 and K2 0 per append in
    the SLAM loop (its tracks stay under K2's threshold); every off-path
-   counter 0. Prints each reading and the phase's seconds.
+   counter 0. Prints each reading.
+   Phases 11a, 11c, 11d, 12 and 13 run as eleven jobs, four at a time
+   (run_concurrently), after phase 14: their subprocesses share the card
+   and the host, so the seconds and readings they print show that each
+   entry point runs, not what it reads alone (run it alone for that).
+   Each job's lines are printed under its name once all have ended; any
+   job's failure fails the run.
 14. the tracker at another head dim: BATrack + MDTrackerAdapter at
    davis_demo with model.num_heads 6 (hidden 384 over 6 heads: head dim
    64, its own build of K2's source) for 24 frames, the counters set to 0
@@ -210,7 +218,8 @@ and read just after. Later in phase 2, K2 packed, K2 kv= (slim and packed
 sources), K3 and K4 are held against their plain versions at the edges of
 the bf16 kernel's tiling: query and key counts that leave its 128-query
 and 128-key tiles ragged, fewer keys than one tile, and key masks that
-mask whole key tiles. Last in phase 2, it holds the kernels at the widths their
+mask whole key tiles (each with its key-tile plan's dead, full and mixed
+tiles). Last in phase 2, it holds the kernels at the widths their
 TPU kernels take beside the tracker's (each width its own build, all
 built in phase 1): K2 packed, K2 kv= (slim source), K3 and K4 (split
 views) at head dims 24, 32, 64, 96 and 128 with 8 heads on (12, 2400)
@@ -276,6 +285,7 @@ import subprocess
 import sys
 import statistics
 import tempfile
+import threading
 import time
 import zlib
 from collections import deque
@@ -344,13 +354,24 @@ def source_digest() -> str:
 
 
 # phases 12 and 13: the port's measurement entry points, run as a user runs them
+# (each alone when its reading is wanted: the smoke run holds them to their
+# checks, CONCURRENT_JOBS at a time with phase 11's subprocesses)
+CONCURRENT_JOBS = 4
 MEASUREMENT_SCRIPTS = ("bench_torch.py", "scripts/torch_tracker_breakdown.py",
                        "bench_refine_torch.py", "bench_depth_torch.py",
                        "bench_scaling_torch.py", "scripts/torch_corr_vol_ab.py")
 
 
+# a run_concurrently job's thread holds its log lines here until every job has ended
+_held = threading.local()
+
+
 def log(*a):
-    print(*a, flush=True)
+    lines = getattr(_held, "lines", None)
+    if lines is None:
+        print(*a, flush=True)
+    else:
+        lines.append(" ".join(map(str, a)))
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -758,6 +779,26 @@ def tile_mask(nk, dev, gen):
     return m
 
 
+def key_tile_plan(key_mask):
+    """The bf16 kernel's plan of an (Nk,) key mask, as the kernel builds it
+    in each block (csrc/fused_qkv_attention.cu, header note): each 128-key
+    tile is dead (no live key: neither loaded nor computed), full (128 live
+    keys: the fast softmax) or mixed (the rest, a ragged last tile among
+    them). With no live key anywhere every tile is walked as mixed. Returns
+    the three counts and `walk`, the walked tiles in order, for the reports
+    (tests/test_torch_kernels.py holds the walk against the kernel)."""
+    m = key_mask.detach().to("cpu", torch.bool)
+    n_tiles = -(-m.numel() // 128)
+    live = torch.zeros(n_tiles * 128, dtype=torch.int64)
+    live[:m.numel()] = m
+    live = live.view(n_tiles, 128).sum(1)
+    if int(live.sum()) == 0:
+        return {"dead": 0, "full": 0, "mixed": n_tiles, "walk": list(range(n_tiles))}
+    full = int((live == 128).sum())
+    walk = torch.nonzero(live).flatten().tolist()
+    return {"dead": n_tiles - len(walk), "full": full, "mixed": len(walk) - full, "walk": walk}
+
+
 def phase_edges(dev, gen):
     """K2 packed, K2 kv=, K3 and K4 against their plain versions where the
     bf16 kernel's tiles are ragged or whole key tiles are masked, in bf16
@@ -785,6 +826,8 @@ def phase_edges(dev, gen):
                 qkv = qkv32.to(dt)
                 kv = None if kv32 is None else kv32.to(dt)
                 for m in (None, tile_mask(nk, dev, gen)):
+                    plan = "" if m is None else " (plan: {dead} dead, {full} full, {mixed} " \
+                        "mixed tiles)".format(**key_tile_plan(m))
                     out = fused_qkv_attention(qkv, heads, scale, m, kv=kv)
                     torch.cuda.synchronize()
                     assert out.shape == (3, n, width) and out.dtype == dt
@@ -794,7 +837,7 @@ def phase_edges(dev, gen):
                     worst = max(worst, err) if bf16 else worst
                     check(f"K2 {source or 'packed qkv'} source, {n} queries x {nk} keys, "
                           f"{heads} heads, {str(dt)[6:]}, key mask "
-                          f"{'no' if m is None else 'whole tiles'}",
+                          f"{'no' if m is None else 'whole tiles'}{plan}",
                           err, bf16_tol(ref) if bf16 else TOL["k2_f32"])
                     if source is not None:
                         continue
@@ -839,8 +882,8 @@ SCALING_TRACKS, SCALING_S = 1024, 8  # bench_scaling_torch.py's tracker section 
 def width_builds():
     """The builds of every width phase 2 and phase 14 run beside the
     default ones, and of every other head dim the attention wrappers take
-    (phase 1 holds each build's float32 kernel to no spill and no
-    serialised wgmma; phase 2 runs d 8 and 128 in float32 against
+    (phase 1 holds each build's bf16 and float32 kernels to no spill and
+    no serialised wgmma; phase 2 runs d 8 and 128 in float32 against
     float64)."""
     from batrack_tpu_torch.ops import cuda_build
     from batrack_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
@@ -850,24 +893,16 @@ def width_builds():
             + [cuda_build.spec("corr_sample", RADIUS=r, C=c) for r, c in WIDTH_K1])
 
 
-def f32_build_faults(logs):
+def attention_build_faults(logs):
     """From the builds' ptxas output (cuda_build.build's logs): for each
-    attention build, the float32 kernel's spill lines with nonzero bytes
-    and any C75xx line about it (a serialised or fenced wgmma)."""
-    faults = {}
-    for name, text in logs.items():
-        if not name.startswith("fused_qkv_attention"):
-            continue
-        fn = ""
-        for ln in text.splitlines():
-            if "Function properties for" in ln:
-                fn = ln
-            elif "attention_f32_wgmma_kernel" in fn and "spill" in ln and (
-                    " 0 bytes spill stores" not in ln or " 0 bytes spill loads" not in ln):
-                faults.setdefault(name, []).append(ln.strip())
-            if "C75" in ln and "attention_f32_wgmma_kernel" in ln:
-                faults.setdefault(name, []).append(ln.strip()[:120])
-    return faults
+    attention build, the spill lines with nonzero bytes and any C75xx line
+    (a serialised or fenced wgmma) of either attention kernel, bf16
+    (`attention_bf16_wgmma_kernel`) or float32 (`attention_f32_wgmma_kernel`)."""
+    from batrack_tpu_torch.ops import cuda_build
+
+    return cuda_build.ptxas_faults(
+        {name: text for name, text in logs.items() if name.startswith("fused_qkv_attention")},
+        cuda_build.ATTENTION_KERNELS)
 
 
 def f32_route_vs_float64(dev, gen):
@@ -1682,13 +1717,16 @@ def kf_masked_k2(masks, dev, gen):
     B, N, C3 = shape
     scale = (HIDDEN // HEADS) ** -0.5
     n_keys = int(mask.sum())
+    plan = key_tile_plan(mask)
+    plan = {k: plan[k] for k in ("dead", "full", "mixed")}
     qkv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     out = fused_qkv_attention(qkv, HEADS, scale, mask)
     ref = fused_qkv_attention_plain(qkv, HEADS, scale, mask)
     err = max_err(out, ref)
-    check(f"K2 masked at the keyframe path's shape ({B}, {N}, {C3}), {n_keys} of {N} keys, "
+    check(f"K2 masked at the keyframe path's shape ({B}, {N}, {C3}), {n_keys} of {N} keys "
+          f"(plan: {plan['dead']} dead, {plan['full']} full, {plan['mixed']} mixed key tiles), "
           "bf16 vs plain", err, bf16_tol(ref))
-    return {"shape": list(shape), "active_keys": n_keys, "max_abs_err": err,
+    return {"shape": list(shape), "active_keys": n_keys, "key_tiles": plan, "max_abs_err": err,
             **k2_times(qkv, mask)}
 
 
@@ -2171,9 +2209,9 @@ def phase_ranks(cfg, images, depths, mesh, gen):
 
 # ---------------------------------------------------------------- the user's pipeline
 GT_DEPTH_SCALE = 1.01         # the .dpt ground truth is the prior x 1.01 (tests/test_cli_e2e.py)
-# the CPU's float64 runs (the reference and its witness) take 7-10 s per step
-# on the H100 machine's CPU: 4 steps keep the script inside its time limit
-REFINE_CHECK_STEPS = 4
+# the CPU's float64 runs (the reference and its witness) take 7-11 s per step
+# on the H100 machine's CPU: 2 steps keep the script inside its time limit
+REFINE_CHECK_STEPS = 2
 REFINE_GT_DEPTH = 5.0         # tests/test_refine.py's flat scene
 
 
@@ -2404,7 +2442,7 @@ def refine_results(rng, T, N, S, scale_errs):
 
 
 def phase_refine(dev, T, N, S, profile=False):
-    """Phase 7b: stage-3 numerics at the pipeline's shape. Four Adam steps
+    """Phase 7b: stage-3 numerics at the pipeline's shape. Two Adam steps
     of every loss in float64 on the card against the CPU, within 10x a
     witness (the CPU run of inputs moved by one float64 rounding) and at
     least 1e-5: in float32 the first steps' signs sit on rounding (Adam
@@ -3428,16 +3466,17 @@ def journey_demo_scripts(work, ckpt):
 
 def phase_journeys(dev, work):
     """Phase 11: the port's journey scripts and its checkpoint validator on
-    the card: a. the validator as a subprocess; b. configs/sintel.yaml's
-    1536-track path in process on 436x1024 frames, K1 and K2 counted,
-    checked and timed; c. the Sintel and Shibuya pose and depth scripts as
-    subprocesses; d. the demo scripts on phase 10's frames."""
+    the card. b. runs here: configs/sintel.yaml's 1536-track path in
+    process on 436x1024 frames, K1 and K2 counted, checked and timed. The
+    rest are returned as jobs for run_concurrently, each a chain of
+    subprocesses with its checks: a. the validator; c. the Sintel and
+    Shibuya pose and depth scripts; d. the demo scripts on phase 10's
+    frames. Returns (b's readings, the jobs)."""
     from batrack_tpu_torch.utils.synth import make_scene
 
     t_phase = time.perf_counter()
     ckpt = work / "md_tracker.pth"
     write_tracker_checkpoint(ckpt)
-    validator = journey_validator(ckpt)
 
     intr = np.array([500.0 * SINTEL_WD / 640, 500.0 * SINTEL_WD / 640, SINTEL_WD / 2,
                      SINTEL_HT / 2], np.float32)
@@ -3445,25 +3484,67 @@ def phase_journeys(dev, work):
     data_root, depth_root, dirs = sintel_layout(work, images, depths, poses_gt, intr)
     sintel, in_process = journey_sintel_in_process(dev, ckpt, data_root, depth_root)
     crop = (SINTEL_HT - SINTEL_HT % 16, SINTEL_WD - SINTEL_WD % 16)
-    sintel["scripts"], script_poses = journey_eval(
-        "sintel", ckpt, data_root, depth_root, dirs["cam"], "sintel", crop)
-    diff = float(np.abs(script_poses - in_process).max())
-    check("TUM poses, eval_sintel_pose.sh vs the in-process run", diff, POSE_TOL)
-    sintel["scripts"]["poses_vs_in_process"] = diff
+
+    def sintel_scripts():
+        scripts, script_poses = journey_eval(
+            "sintel", ckpt, data_root, depth_root, dirs["cam"], "sintel", crop)
+        diff = float(np.abs(script_poses - in_process).max())
+        check("TUM poses, eval_sintel_pose.sh vs the in-process run", diff, POSE_TOL)
+        return {**scripts, "poses_vs_in_process": diff}
 
     calib = np.loadtxt(Path(__file__).resolve().parent / "calibs" / "tartan_shibuya.txt")
     images, depths, poses_gt = make_scene(EVAL_FRAMES, SHIBUYA_HT, SHIBUYA_WD,
                                           calib[:4].astype(np.float32))
-    data_root, depth_root = tartanair_layout(work, images, depths, poses_gt)
+    sh_root, sh_depth = tartanair_layout(work, images, depths, poses_gt)
     del images, depths
-    shibuya, _ = journey_eval("shibuya", ckpt, data_root, depth_root,
-                              data_root / EVAL_SEQ / "gt_pose.txt", "tartanair",
-                              (SHIBUYA_HT - SHIBUYA_HT % 16, SHIBUYA_WD))
-    demo = journey_demo_scripts(work, ckpt)
-    seconds = time.perf_counter() - t_phase
-    log(f"  phase 11: {seconds:.1f} s")
-    return {"validator": validator, "sintel": sintel, "shibuya": shibuya, "demo_scripts": demo,
-            "seconds": seconds}
+    jobs = {
+        "11a validator": lambda: journey_validator(ckpt),
+        "11c sintel scripts": sintel_scripts,
+        "11c shibuya scripts": lambda: journey_eval(
+            "shibuya", ckpt, sh_root, sh_depth, sh_root / EVAL_SEQ / "gt_pose.txt", "tartanair",
+            (SHIBUYA_HT - SHIBUYA_HT % 16, SHIBUYA_WD))[0],
+        "11d demo scripts": lambda: journey_demo_scripts(work, ckpt),
+    }
+    log(f"  phase 11b and the journeys' files: {time.perf_counter() - t_phase:.1f} s")
+    return sintel, jobs
+
+
+def run_concurrently(jobs, order, workers=CONCURRENT_JOBS):
+    """Runs each job of `jobs` (name -> function) on a pool of `workers`
+    threads, started in `order` (the longest first), each holding its log
+    lines; prints each job's lines under its name and wall seconds once
+    all have ended, in `order`. Returns {name: the function's result};
+    raises the first failure after every job has ended and printed."""
+    assert sorted(order) == sorted(jobs)
+
+    def held(name):
+        _held.lines = lines = []
+        t0 = time.perf_counter()
+        try:
+            return jobs[name](), None, lines, time.perf_counter() - t0
+        except Exception as e:  # re-raised below, once every job has printed
+            return None, e, lines, time.perf_counter() - t0
+        finally:
+            del _held.lines
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        futures = [pool.submit(held, name) for name in order]
+    wall = time.perf_counter() - t0
+    out, failed = {}, []
+    for name, future in zip(order, futures):
+        value, err, lines, seconds = future.result()
+        log(f"[concurrent] {name}: {seconds:.1f} s{' FAILED' if err else ''}")
+        for line in lines:
+            log(line)
+        if err is not None:
+            failed.append(err)
+        out[name] = value
+    log(f"[concurrent] {len(jobs)} jobs, {workers} at a time: {wall:.1f} s")
+    if failed:
+        raise failed[0]
+    out["seconds"] = wall
+    return out
 
 
 # ---------------------------------------------------------------- phase 12
@@ -3493,20 +3574,20 @@ def require_positive(what, values):
         raise AssertionError(f"{what}: not finite and positive: {bad}")
 
 
-def phase_measurements(cfg):
-    """Phase 12: the port's measurement entry points as subprocesses at
-    their full configurations: bench_torch.py (and --mesh 1),
-    scripts/torch_tracker_breakdown.py, bench_refine_torch.py and
-    bench_depth_torch.py. Each exits 0 and prints its JSON line, whose
-    numbers are finite and positive; bench_torch's mfu is set on an H100,
-    its launches per append are the code's (K1 4, K2 24; K2 on the kv=
-    route under the mesh) and every other counter reads 0; the breakdown
-    counts 4 K1 launches and I UpdateFormer calls per forward."""
-    t_phase = time.perf_counter()
+def measurement_jobs(cfg):
+    """Phase 12 as jobs for run_concurrently: the port's measurement entry
+    points as subprocesses at their full configurations: bench_torch.py
+    (and --mesh 1), scripts/torch_tracker_breakdown.py,
+    bench_refine_torch.py and bench_depth_torch.py. Each exits 0 and prints
+    its JSON line, whose numbers are finite and positive; bench_torch's mfu
+    is set on an H100, its launches per append are the code's (K1 4, K2 24;
+    K2 on the kv= route under the mesh) and every other counter reads 0;
+    the breakdown counts 4 K1 launches and I UpdateFormer calls per
+    forward."""
     _, k1_per, k2_per = launches_per_append(cfg)
     h100 = "H100" in torch.cuda.get_device_name(0)
-    out = {}
-    for mesh in (False, True):
+
+    def bench_torch(mesh):
         name = "bench_torch" + ("_mesh1" if mesh else "")
         wall, (res,), _ = run_measurement(["bench_torch.py"] + (["--mesh", "1"] if mesh else []))
         st, lp = res["stage_ms"], res["launches_per_append"]
@@ -3528,50 +3609,55 @@ def phase_measurements(cfg):
               abs(lp["fused_qkv_attention_kv"] - (k2_per if mesh else 0)), 0)
         check(f"{name}: off-path launches (K3, K4, K1's options)",
               sum(lp[k] for k in OFF_PATH), 0)
-        out[name] = {"seconds": wall, **{k: res[k] for k in (
+        return {"seconds": wall, **{k: res[k] for k in (
             "value", "stage_ms", "tracker_gflops_per_call", "tracker_gflops_flop_counter",
             "mfu", "launches_per_append", "device")}}
 
-    wall, (res,), stdout = run_measurement(["scripts/torch_tracker_breakdown.py"])
-    log(f"[tracker breakdown] {wall:.1f} s")
-    log("\n".join(ln for ln in stdout.splitlines() if not ln.startswith("{")))
-    rows = {r["row"]: r for r in res["rows"]}
-    require_positive("breakdown", {k: r["ms_per_call"] for k, r in rows.items()})
-    corr = next(r for k, r in rows.items() if k.startswith("corr"))
-    former = next(r for k, r in rows.items() if k.startswith("UpdateFormer"))
-    check(f"breakdown: K1 launches per forward against {k1_per}", abs(corr["calls"] - k1_per), 0)
-    check(f"breakdown: UpdateFormer calls per forward against I={cfg.model.I}",
-          abs(former["calls"] - cfg.model.I), 0)
-    out["tracker_breakdown"] = {"seconds": wall, "rows": res["rows"],
-                                "accounted_ms": res["accounted_ms"],
-                                "residual_ms": res["residual_ms"]}
+    def breakdown():
+        wall, (res,), stdout = run_measurement(["scripts/torch_tracker_breakdown.py"])
+        log(f"[tracker breakdown] {wall:.1f} s")
+        log("\n".join(ln for ln in stdout.splitlines() if not ln.startswith("{")))
+        rows = {r["row"]: r for r in res["rows"]}
+        require_positive("breakdown", {k: r["ms_per_call"] for k, r in rows.items()})
+        corr = next(r for k, r in rows.items() if k.startswith("corr"))
+        former = next(r for k, r in rows.items() if k.startswith("UpdateFormer"))
+        check(f"breakdown: K1 launches per forward against {k1_per}",
+              abs(corr["calls"] - k1_per), 0)
+        check(f"breakdown: UpdateFormer calls per forward against I={cfg.model.I}",
+              abs(former["calls"] - cfg.model.I), 0)
+        return {"seconds": wall, "rows": res["rows"], "accounted_ms": res["accounted_ms"],
+                "residual_ms": res["residual_ms"]}
 
-    wall, (res,), _ = run_measurement(["bench_refine_torch.py"])
-    log(f"[bench_refine_torch] {wall:.1f} s: {res['value']:.3f} Adam iterations/s over "
-        f"{res['niter']} at {json.dumps(res['scene'])}, {res['sec_per_scene']:.2f} s, final "
-        f"loss {res['final_loss']:.6f}, peak {res['peak_memory_gib']:.2f} GiB")
-    require_positive("bench_refine_torch", {k: res[k] for k in (
-        "value", "sec_per_scene", "final_loss", "peak_memory_gib")})
-    out["bench_refine"] = {"seconds": wall, **{k: res[k] for k in (
-        "value", "sec_per_scene", "final_loss", "peak_memory_gib")}}
+    def bench_refine():
+        wall, (res,), _ = run_measurement(["bench_refine_torch.py"])
+        log(f"[bench_refine_torch] {wall:.1f} s: {res['value']:.3f} Adam iterations/s over "
+            f"{res['niter']} at {json.dumps(res['scene'])}, {res['sec_per_scene']:.2f} s, final "
+            f"loss {res['final_loss']:.6f}, peak {res['peak_memory_gib']:.2f} GiB")
+        require_positive("bench_refine_torch", {k: res[k] for k in (
+            "value", "sec_per_scene", "final_loss", "peak_memory_gib")})
+        return {"seconds": wall, **{k: res[k] for k in (
+            "value", "sec_per_scene", "final_loss", "peak_memory_gib")}}
 
-    wall, lines, _ = run_measurement(["bench_depth_torch.py"])
-    by_metric = {r["metric"]: r for r in lines}
-    if set(by_metric) != {"da2_vitl_fps", "unidepth_vitl_fps"}:
-        raise AssertionError(f"bench_depth_torch printed {sorted(by_metric)}")
-    da2, ud = by_metric["da2_vitl_fps"], by_metric["unidepth_vitl_fps"]
-    log(f"[bench_depth_torch] {wall:.1f} s: DA2 vitl {da2['value']:.3f} frames/s at input "
-        f"{da2['input']}; UniDepthV2 vitl {ud['value']:.3f} frames/s through infer "
-        f"({ud['value_depth_K_only']:.3f} depth and K only) at {ud['network_hw']}")
-    require_positive("bench_depth_torch", {"da2": da2["value"], "unidepth": ud["value"],
-                                           "unidepth_depth_K_only": ud["value_depth_K_only"]})
-    out["bench_depth"] = {"seconds": wall, "da2_vitl_fps": da2["value"], "da2_input": da2["input"],
-                          "unidepth_vitl_fps": ud["value"],
-                          "unidepth_depth_K_only_fps": ud["value_depth_K_only"],
-                          "unidepth_network_hw": ud["network_hw"]}
-    out["seconds"] = time.perf_counter() - t_phase
-    log(f"  phase 12: {out['seconds']:.1f} s")
-    return out
+    def bench_depth():
+        wall, lines, _ = run_measurement(["bench_depth_torch.py"])
+        by_metric = {r["metric"]: r for r in lines}
+        if set(by_metric) != {"da2_vitl_fps", "unidepth_vitl_fps"}:
+            raise AssertionError(f"bench_depth_torch printed {sorted(by_metric)}")
+        da2, ud = by_metric["da2_vitl_fps"], by_metric["unidepth_vitl_fps"]
+        log(f"[bench_depth_torch] {wall:.1f} s: DA2 vitl {da2['value']:.3f} frames/s at input "
+            f"{da2['input']}; UniDepthV2 vitl {ud['value']:.3f} frames/s through infer "
+            f"({ud['value_depth_K_only']:.3f} depth and K only) at {ud['network_hw']}")
+        require_positive("bench_depth_torch", {"da2": da2["value"], "unidepth": ud["value"],
+                                               "unidepth_depth_K_only": ud["value_depth_K_only"]})
+        return {"seconds": wall, "da2_vitl_fps": da2["value"], "da2_input": da2["input"],
+                "unidepth_vitl_fps": ud["value"],
+                "unidepth_depth_K_only_fps": ud["value_depth_K_only"],
+                "unidepth_network_hw": ud["network_hw"]}
+
+    return {"12 bench_torch": lambda: bench_torch(False),
+            "12 bench_torch_mesh1": lambda: bench_torch(True),
+            "12 tracker_breakdown": breakdown, "12 bench_refine": bench_refine,
+            "12 bench_depth": bench_depth}
 
 
 # ---------------------------------------------------------------- phase 13
@@ -3595,100 +3681,101 @@ def check_off_path(what, launches):
           sum(launches[k] for k in OFF_PATH), 0)
 
 
-def phase_scaling(cfg):
-    """Phase 13: bench_scaling_torch.py and scripts/torch_corr_vol_ab.py as
-    subprocesses (module note)."""
-    t_phase = time.perf_counter()
+def scaling_jobs(cfg):
+    """Phase 13 as jobs for run_concurrently: bench_scaling_torch.py and
+    scripts/torch_corr_vol_ab.py as subprocesses (module note)."""
     _, k1_per, _ = launches_per_append(cfg)
-    wall, lines, _ = run_measurement(["bench_scaling_torch.py"])
-    by = {r["metric"]: r for r in lines}
-    names = ("slam_scaling_real_tracker", "tracker_scaling", "collective_bytes",
-             "ba_allreduce_bytes", "collective_cost_model")
-    if len(lines) != 5 or set(by) != set(names):
-        raise AssertionError(f"bench_scaling_torch printed {[r.get('metric') for r in lines]}")
-    slam, tr, cb, ba, cm = (by[k] for k in names)
-    counts = sorted(slam["fps"], key=int)
-    log(f"[bench_scaling_torch] {wall:.1f} s at counts {counts} on {slam['device']['smi']}")
-    log(f"  slam: frames/s {json.dumps(slam['fps'])}, overhead {json.dumps(slam['overhead'])}")
-    log(f"  tracker: s per forward {json.dumps(tr['sec_per_forward'])}, per rep "
-        f"{json.dumps(tr['sec_per_rep'])}, overhead {json.dumps(tr['overhead'])}")
-    require_positive("slam fps", slam["fps"])
-    require_positive("tracker s per forward", tr["sec_per_forward"])
-    require_positive("tracker s per rep", {f"{n}.{i}": t for n, reps in tr["sec_per_rep"].items()
-                                           for i, t in enumerate(reps)})
-    if "1" not in counts or set(tr["sec_per_forward"]) != set(counts):
-        raise AssertionError(f"counts: slam {counts}, tracker {sorted(tr['sec_per_forward'])}")
-    k2_fwd = scaling_k2_per_forward(tr["shapes"])
-    tracks = slam["shapes"]["tracks_per_append"]
-    for n in counts:
-        lp, lf = slam["launches_per_append"][n], tr["launches_per_forward"][n]
-        check(f"scaling slam at {n}: K1 launches per append against the code's {k1_per}",
-              abs(lp["corr_sample"] - k1_per), 0)
-        check(f"scaling slam at {n}: K2 launches per append against 0 ({tracks} tracks < 1024)",
-              lp["fused_qkv_attention"], 0)
-        check(f"scaling tracker at {n}: K2 kv= launches per forward against the code's {k2_fwd}",
-              abs(lf["fused_qkv_attention_kv"] - k2_fwd), 0)
-        check(f"scaling tracker at {n}: K2 launches all kv=",
-              abs(lf["fused_qkv_attention"] - lf["fused_qkv_attention_kv"]), 0)
-        for what, launches in (("slam", lp), ("tracker", lf),
-                               ("collective_bytes", cb["per_mesh"][n]["launches"])):
-            check_off_path(f"scaling {what} at {n}", launches)
-        g, b = cb["per_mesh"][n], ba["per_mesh"][n]
-        log(f"  collective_bytes at {n}: {g['counted_allgather_output_elements']} all-gather "
-            f"elements ({json.dumps(g['counted_shapes'])}) against the model "
-            f"{g['model_full_gather_elements']} + mask {g['model_mask_elements']}; "
-            f"all_gather {g['allgather_ms']:.4f} ms back to back, {g['allgather_device_ms']:.4f} "
-            f"on the device; gather_rows {g['gather_rows_ms']:.4f} / "
-            f"{g['gather_rows_device_ms']:.4f} ms; received {g['receive_gbytes_per_s']} / "
-            f"{g['receive_gbytes_per_s_device']} GB/s")
-        check(f"collective_bytes at {n}: counted all-gather elements against the model",
-              abs(g["counted_allgather_output_elements"]
-                  - g["model_full_gather_elements"] - g["model_mask_elements"]), 0)
-        check(f"collective_bytes at {n}: counted mask elements against the model",
-              abs(g["counted_mask_elements"] - g["model_mask_elements"]), 0)
-        check(f"collective_bytes at {n}: one K2 kv= launch", abs(g["k2_kv_launches"] - 1), 0)
-        require_positive(f"collective_bytes at {n}", {k: g[k] for k in (
-            "allgather_ms", "gather_rows_ms", "allgather_device_ms", "gather_rows_device_ms",
-            "counted_allgather_output_elements")})
-        log(f"  ba_allreduce_bytes at {n}: {b['counted_allreduce_elements']} all-reduce "
-            f"elements in {b['counted_allreduce_calls']} calls against the model "
-            f"{b['model_elements']}; all-gathers {json.dumps(b['allgathers'])}")
-        check(f"ba_allreduce_bytes at {n}: counted all-reduce elements against the model",
-              abs(b["counted_allreduce_elements"] - b["model_elements"]), 0)
-    check_off_path("scaling space block", cm["assumptions"]["space_block_launches"])
-    require_positive("cost model", {"block_ms": cm["assumptions"]["measured_block_ms_1card"],
-                                    **{f"efficiency {n}": p["tracker_efficiency_unoverlapped"]
-                                       for n, p in cm["projection"].items()}})
-    log(f"  cost model: block {cm['assumptions']['measured_block_ms_1card']:.4f} ms; "
-        + "; ".join(f"{n}: {p['rate_source']} {p['gather_gbytes_per_s']:.1f} GB/s, "
-                    f"efficiency {p['tracker_efficiency_unoverlapped']:.3f}"
-                    for n, p in cm["projection"].items()))
-    out = {"bench_scaling": {"seconds": wall, "fps": slam["fps"],
-                             "sec_per_forward": tr["sec_per_forward"],
-                             "collective_bytes": cb["per_mesh"],
-                             "ba_allreduce_bytes": ba["per_mesh"],
-                             "cost_model": cm["projection"],
-                             "block_ms": cm["assumptions"]["measured_block_ms_1card"]}}
 
-    wall, (res,), stdout = run_measurement(["scripts/torch_corr_vol_ab.py"])
-    log(f"[torch_corr_vol_ab] {wall:.1f} s")
-    log("\n".join(ln for ln in stdout.splitlines() if not ln.startswith("{")))
-    check("corr_vol_ab: K1 vs plain", res["k1_max_abs_err"], TOL["k1"])
-    check(f"corr_vol_ab: K1 launches against {res['warmup']} warm-ups + {res['reps']} reps",
-          abs(res["k1_launches"] - res["warmup"] - res["reps"]), 0)
-    check_off_path("corr_vol_ab", res["launches"])
-    require_positive("corr_vol_ab", {k: res[k] for k in (
-        "k1_ms", "k1_pack_ms", "k1_bound_ms", "volumes_ms", "volumes_write_bound_ms")})
-    log(f"  K1 {res['k1_ms']:.4f} ms (bound {res['k1_bound_ms']:.4f}), pack "
-        f"{res['k1_pack_ms']:.4f}; volumes {res['volumes_ms']:.4f} ms for "
-        f"{res['volumes_mb_written']:.1f} MB (write bound {res['volumes_write_bound_ms']:.4f}), "
-        f"{res['volumes_over_k1']:.2f}x K1")
-    out["corr_vol_ab"] = {"seconds": wall, **{k: res[k] for k in (
-        "k1_ms", "k1_pack_ms", "k1_launches", "k1_max_abs_err", "k1_bound_ms", "volumes_ms",
-        "volumes_mb_written", "volumes_write_bound_ms", "volumes_over_k1")}}
-    out["seconds"] = time.perf_counter() - t_phase
-    log(f"  phase 13: {out['seconds']:.1f} s")
-    return out
+    def bench_scaling():
+        wall, lines, _ = run_measurement(["bench_scaling_torch.py"])
+        by = {r["metric"]: r for r in lines}
+        names = ("slam_scaling_real_tracker", "tracker_scaling", "collective_bytes",
+                 "ba_allreduce_bytes", "collective_cost_model")
+        if len(lines) != 5 or set(by) != set(names):
+            raise AssertionError(f"bench_scaling_torch printed {[r.get('metric') for r in lines]}")
+        slam, tr, cb, ba, cm = (by[k] for k in names)
+        counts = sorted(slam["fps"], key=int)
+        log(f"[bench_scaling_torch] {wall:.1f} s at counts {counts} on {slam['device']['smi']}")
+        log(f"  slam: frames/s {json.dumps(slam['fps'])}, overhead {json.dumps(slam['overhead'])}")
+        log(f"  tracker: s per forward {json.dumps(tr['sec_per_forward'])}, per rep "
+            f"{json.dumps(tr['sec_per_rep'])}, overhead {json.dumps(tr['overhead'])}")
+        require_positive("slam fps", slam["fps"])
+        require_positive("tracker s per forward", tr["sec_per_forward"])
+        require_positive("tracker s per rep", {f"{n}.{i}": t
+                                               for n, reps in tr["sec_per_rep"].items()
+                                               for i, t in enumerate(reps)})
+        if "1" not in counts or set(tr["sec_per_forward"]) != set(counts):
+            raise AssertionError(f"counts: slam {counts}, tracker {sorted(tr['sec_per_forward'])}")
+        k2_fwd = scaling_k2_per_forward(tr["shapes"])
+        tracks = slam["shapes"]["tracks_per_append"]
+        for n in counts:
+            lp, lf = slam["launches_per_append"][n], tr["launches_per_forward"][n]
+            check(f"scaling slam at {n}: K1 launches per append against the code's {k1_per}",
+                  abs(lp["corr_sample"] - k1_per), 0)
+            check(f"scaling slam at {n}: K2 launches per append against 0 ({tracks} tracks < 1024)",
+                  lp["fused_qkv_attention"], 0)
+            check(f"scaling tracker at {n}: K2 kv= launches per forward against the code's "
+                  f"{k2_fwd}", abs(lf["fused_qkv_attention_kv"] - k2_fwd), 0)
+            check(f"scaling tracker at {n}: K2 launches all kv=",
+                  abs(lf["fused_qkv_attention"] - lf["fused_qkv_attention_kv"]), 0)
+            for what, launches in (("slam", lp), ("tracker", lf),
+                                   ("collective_bytes", cb["per_mesh"][n]["launches"])):
+                check_off_path(f"scaling {what} at {n}", launches)
+            g, b = cb["per_mesh"][n], ba["per_mesh"][n]
+            log(f"  collective_bytes at {n}: {g['counted_allgather_output_elements']} all-gather "
+                f"elements ({json.dumps(g['counted_shapes'])}) against the model "
+                f"{g['model_full_gather_elements']} + mask {g['model_mask_elements']}; "
+                f"all_gather {g['allgather_ms']:.4f} ms back to back, "
+                f"{g['allgather_device_ms']:.4f} on the device; gather_rows "
+                f"{g['gather_rows_ms']:.4f} / "
+                f"{g['gather_rows_device_ms']:.4f} ms; received {g['receive_gbytes_per_s']} / "
+                f"{g['receive_gbytes_per_s_device']} GB/s")
+            check(f"collective_bytes at {n}: counted all-gather elements against the model",
+                  abs(g["counted_allgather_output_elements"]
+                      - g["model_full_gather_elements"] - g["model_mask_elements"]), 0)
+            check(f"collective_bytes at {n}: counted mask elements against the model",
+                  abs(g["counted_mask_elements"] - g["model_mask_elements"]), 0)
+            check(f"collective_bytes at {n}: one K2 kv= launch", abs(g["k2_kv_launches"] - 1), 0)
+            require_positive(f"collective_bytes at {n}", {k: g[k] for k in (
+                "allgather_ms", "gather_rows_ms", "allgather_device_ms", "gather_rows_device_ms",
+                "counted_allgather_output_elements")})
+            log(f"  ba_allreduce_bytes at {n}: {b['counted_allreduce_elements']} all-reduce "
+                f"elements in {b['counted_allreduce_calls']} calls against the model "
+                f"{b['model_elements']}; all-gathers {json.dumps(b['allgathers'])}")
+            check(f"ba_allreduce_bytes at {n}: counted all-reduce elements against the model",
+                  abs(b["counted_allreduce_elements"] - b["model_elements"]), 0)
+        check_off_path("scaling space block", cm["assumptions"]["space_block_launches"])
+        require_positive("cost model", {"block_ms": cm["assumptions"]["measured_block_ms_1card"],
+                                        **{f"efficiency {n}": p["tracker_efficiency_unoverlapped"]
+                                           for n, p in cm["projection"].items()}})
+        log(f"  cost model: block {cm['assumptions']['measured_block_ms_1card']:.4f} ms; "
+            + "; ".join(f"{n}: {p['rate_source']} {p['gather_gbytes_per_s']:.1f} GB/s, "
+                        f"efficiency {p['tracker_efficiency_unoverlapped']:.3f}"
+                        for n, p in cm["projection"].items()))
+        return {"seconds": wall, "fps": slam["fps"], "sec_per_forward": tr["sec_per_forward"],
+                "collective_bytes": cb["per_mesh"], "ba_allreduce_bytes": ba["per_mesh"],
+                "cost_model": cm["projection"],
+                "block_ms": cm["assumptions"]["measured_block_ms_1card"]}
+
+    def corr_vol_ab():
+        wall, (res,), stdout = run_measurement(["scripts/torch_corr_vol_ab.py"])
+        log(f"[torch_corr_vol_ab] {wall:.1f} s")
+        log("\n".join(ln for ln in stdout.splitlines() if not ln.startswith("{")))
+        check("corr_vol_ab: K1 vs plain", res["k1_max_abs_err"], TOL["k1"])
+        check(f"corr_vol_ab: K1 launches against {res['warmup']} warm-ups + {res['reps']} reps",
+              abs(res["k1_launches"] - res["warmup"] - res["reps"]), 0)
+        check_off_path("corr_vol_ab", res["launches"])
+        require_positive("corr_vol_ab", {k: res[k] for k in (
+            "k1_ms", "k1_pack_ms", "k1_bound_ms", "volumes_ms", "volumes_write_bound_ms")})
+        log(f"  K1 {res['k1_ms']:.4f} ms (bound {res['k1_bound_ms']:.4f}), pack "
+            f"{res['k1_pack_ms']:.4f}; volumes {res['volumes_ms']:.4f} ms for "
+            f"{res['volumes_mb_written']:.1f} MB (write bound "
+            f"{res['volumes_write_bound_ms']:.4f}), {res['volumes_over_k1']:.2f}x K1")
+        return {"seconds": wall, **{k: res[k] for k in (
+            "k1_ms", "k1_pack_ms", "k1_launches", "k1_max_abs_err", "k1_bound_ms", "volumes_ms",
+            "volumes_mb_written", "volumes_write_bound_ms", "volumes_over_k1")}}
+
+    return {"13 bench_scaling": bench_scaling, "13 corr_vol_ab": corr_vol_ab}
 
 
 def main_ranks() -> int:
@@ -3820,7 +3907,10 @@ def phase_head_dim(images, depths, dev, main_fps, smi):
             "seconds": seconds}
 
 
-KERNEL_NAMES = {"attention_bf16_wgmma_kernel": "attention_bf16_wgmma_kernel",
+KERNEL_NAMES = {**{f"attention_bf16_wgmma_kernelILi{st}ELb{m}E":
+                   f"attention_bf16_wgmma_kernel<{st} stages, {'masked' if m else 'unmasked'}>"
+                   for st in (2, 3, 4) for m in (0, 1)},
+                "attention_bf16_wgmma_kernel": "attention_bf16_wgmma_kernel",
                 "attention_f32_wgmma_kernel": "attention_f32_wgmma_kernel",
                 "split_terms_kernel": "split_terms_kernel",
                 "corr_sample_kernelILi3ELb0E": "corr_sample_kernel<3 terms, bf16>",
@@ -3868,21 +3958,24 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build(["corr_sample", "fused_qkv_attention", *width_builds()])
     log(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (up to date)'}")
-    for name, text in logs.items():
-        fn = "?"
-        for ln in text.splitlines():
-            if "Function properties for" in ln:
-                fn = ln.split("Function properties for ")[1].strip()
-                fn = next((v for k, v in KERNEL_NAMES.items() if k in fn), fn[:40])
-            elif "spill" in ln or "Used " in ln or "C75" in ln:
-                log(f"  {name} {fn}: {ln.replace('ptxas info    :', '').strip()}")
-    faults = f32_build_faults(logs)
-    check(f"float32 attention builds that spill or serialise wgmma {json.dumps(faults)}",
-          len(faults), 0)
+    for name, lines in cuda_build.ptxas_lines(logs).items():
+        for fn, ln in lines:
+            log(f"  {name} {next((v for k, v in KERNEL_NAMES.items() if k in fn), fn[:40])}: "
+                f"{ln}")
+    faults = attention_build_faults(logs)
+    check(f"attention builds (bf16 and float32 kernels) that spill or serialise wgmma "
+          f"{json.dumps(faults)}", len(faults), 0)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t_phases = time.perf_counter()
+    phase_s, t_last = {}, [t_phases]
+
+    def clock(name):
+        """Records the seconds since the last phase ended under `name`."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_last[0], 1)
+        t_last[0] = now
     k1, k1_mxu, k1_int8 = phase_k1(dev, gen)
     ab_launches = phase_corr_ab(dev)
     k2 = phase_k2(dev, gen)
@@ -3895,33 +3988,58 @@ def main() -> int:
     f32_vs_f64 = f32_route_vs_float64(dev, gen)
     log(f"[widths] {time.perf_counter() - t_widths:.1f} s for {len(widths)} kernels at other "
         "widths")
+    clock("2")
 
     cfg = Config()  # davis_demo defaults
     images, depths, poses_gt = make_scene(FRAMES + 2, HT, WD, INTR)
     tin, flash_launches, f32_launches = phase_tracker(cfg, images, depths, dev, gen)
+    clock("3")
     launches, fps, poses_at_stage = phase_slam(cfg, images, depths, dev, args.profile)
+    clock("4")
     ba = phase_ba(cfg, images, depths, dev)
+    clock("5")
     mesh_launches = phase_mesh(cfg, images, depths, dev, fps, poses_at_stage, ba, tin, gen)
+    clock("6")
     phase_pipeline(dev)
     phase_refine(dev, FRAMES, cfg.slam.PATCHES_PER_FRAME, cfg.slam.S_local, args.profile)
+    clock("7")
     stage1 = phase_demo(dev, args.profile)
     log(f"[stage 1] {json.dumps(stage1)}")
+    clock("8")
     kf = phase_keyframe(images, depths, poses_gt, dev, gen)
     log(f"[keyframe] {json.dumps(kf)}")
+    clock("9")
     # phase 11 reads phase 10's JPEG frames and stage-1 checkpoints
     with tempfile.TemporaryDirectory(prefix="batrack_journeys_") as tmp:
         work = Path(tmp)
         davis = phase_davis_jpeg(dev, work)
         log(f"[davis jpeg] {json.dumps(davis)}")
-        journeys = phase_journeys(dev, work)
+        clock("10")
+        sintel, journey_jobs = phase_journeys(dev, work)
+        clock("11b")
+        # phase 14 times a kernel, so it runs before the card is shared
+        wide = phase_head_dim(images, depths, dev, fps, smi)
+        log(f"[head dim] {json.dumps(wide)}")
+        clock("14")
+        # phases 11a, 11c, 11d, 12 and 13: subprocesses, none of which this
+        # run reads a time from, CONCURRENT_JOBS at a time, the longest first
+        jobs = {**journey_jobs, **measurement_jobs(cfg), **scaling_jobs(cfg)}
+        done = run_concurrently(jobs, order=[
+            "11d demo scripts", "11c shibuya scripts", "11c sintel scripts",
+            "12 bench_torch_mesh1", "13 bench_scaling", "12 bench_torch", "12 bench_refine",
+            "11a validator", "12 bench_depth", "12 tracker_breakdown", "13 corr_vol_ab"])
+        clock("11a, 11c, 11d, 12, 13")
+    sintel["scripts"] = done["11c sintel scripts"]
+    journeys = {"validator": done["11a validator"], "sintel": sintel,
+                "shibuya": done["11c shibuya scripts"], "demo_scripts": done["11d demo scripts"]}
     log(f"[journeys] {json.dumps(journeys)}")
-    measurements = phase_measurements(cfg)
+    measurements = {k: done[f"12 {k}"] for k in (
+        "bench_torch", "bench_torch_mesh1", "tracker_breakdown", "bench_refine", "bench_depth")}
     log(f"[measurements] {json.dumps(measurements)}")
-    scaling = phase_scaling(cfg)
+    scaling = {k: done[f"13 {k}"] for k in ("bench_scaling", "corr_vol_ab")}
     log(f"[scaling] {json.dumps(scaling)}")
-    wide = phase_head_dim(images, depths, dev, fps, smi)
-    log(f"[head dim] {json.dumps(wide)}")
-    log(f"[time] phases 2-14: {time.perf_counter() - t_phases:.1f} s after the build")
+    log(f"[time] phases 2-14: {time.perf_counter() - t_phases:.1f} s after the build; by phase "
+        f"{json.dumps(phase_s)}")
 
     k1["launches"] = launches["corr_sample"]
     k2["launches"] = launches["fused_qkv_attention"]

@@ -63,6 +63,7 @@ from batrack_tpu_torch.ops.corr_kernel import (
     resident_map_bytes,
 )
 from batrack_tpu_torch.utils.config import full_fp32
+from chip_smoke import key_tile_plan
 
 # every width the wrappers take on the card: head dims 8 to 128 in steps of
 # 8 (those with d % 16 == 8 have a last 16-lane box half of zeros), and each
@@ -358,14 +359,58 @@ def key_mask(kind, Nk: int, rng):
     """None: no mask. "random": 70 % of the Nk keys live. "tiles": the same
     with keys 0-127 (the bf16 kernel's whole first key tile) and 256-383 (a
     whole later tile) masked; below 129 keys every key is then masked, and
-    each query averages all Nk values, as the plain version does."""
+    each query averages all Nk values, as the plain version does. The
+    kinds whose plans (`key_tile_plan`) skip whole key tiles: "prefix", the
+    first 60 % live (the keyframe path's active tracks); "striped", every
+    other 128-key tile dead and 70 % of the rest live; "last_key", only the
+    third key from the end (in a ragged last tile); "none", no live key."""
     if kind is None:
         return None
     m = rng.uniform(size=Nk) > 0.3
     if kind == "tiles":
         m[:128] = False
         m[256:384] = False
+    elif kind == "striped":
+        m[(np.arange(Nk) // 128) % 2 == 1] = False
+    elif kind in ("prefix", "last_key", "none"):
+        m[:] = False
+        if kind == "prefix":
+            m[:Nk * 3 // 5] = True
+        elif kind == "last_key":
+            m[-3] = True
     return torch.from_numpy(m)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_127attention_bf16_wgmma_kernelILb1EEEv' for 'sm_90a'
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN12_GLOBAL__N_127attention_bf16_wgmma_kernelILb1EEEv'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_127attention_bf16_wgmma_kernelILb1EEEv
+    16 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_126attention_f32_wgmma_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 249 registers, used 16 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118split_terms_kernelEv
+    0 bytes stack frame, 8 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers
+"""
+
+
+@pytest.mark.parametrize("kernels,faults", [
+    (cuda_build.ATTENTION_KERNELS, 2),  # the bf16 kernel's C7512 and spill lines
+    (("attention_f32_wgmma_kernel",), 0),
+    (("split_terms_kernel",), 1),
+])
+def test_ptxas_faults_read_each_function_s_lines(kernels, faults):
+    """ptxas_lines ties each register, spill and C75xx line to its function
+    (a C75xx line by the name it holds), and ptxas_faults keeps the spills
+    with nonzero bytes and the C75xx lines of the named kernels only."""
+    lines = cuda_build.ptxas_lines({"b": PTXAS_LOG})["b"]
+    assert len(lines) == 7
+    assert [fn.split("N_")[1][:6] for fn, _ in lines] == ["127att"] * 3 + ["126att"] * 2 + [
+        "118spl"] * 2
+    got = cuda_build.ptxas_faults({"b": PTXAS_LOG}, kernels)
+    assert len(got.get("b", [])) == faults
 
 
 # ---------------------------------------------------------------- on the card
@@ -480,6 +525,81 @@ def test_attention_kernel_matches_plain_on_gpu(rng, cuda, dtype, mask_kind, N, H
         ref = fused_qkv_attention_plain(qkv, H, d ** -0.5, mask)
     tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", [None, "slim"])
+@pytest.mark.parametrize("mask_kind", ["prefix", "striped", "last_key", "none"])
+def test_attention_key_tile_plans_on_gpu(rng, cuda, dtype, source, mask_kind, d):
+    """K2 packed (1100 queries and keys: nine key tiles, the last ragged) and
+    with a slim kv= source (150 queries against them) on the masks whose
+    plans leave whole key tiles out, so that the walk wraps the K/V ring
+    (four stages, three at d 128) over the tiles it keeps; with no live key
+    every query averages all values. In bf16 the keys and values of the
+    tiles the plan (chip_smoke.key_tile_plan, which the reports print)
+    calls dead are NaN in the kernel's input and not in the plain
+    version's: a dead tile that the kernel loaded and computed would carry
+    NaN into every row (its weights are 0, 0 x NaN is NaN), and a live one
+    that it skipped would change the rows."""
+    B, N, H, Nk = 3, 1100 if source is None else 150, 8, 1100
+    C = H * d
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(cuda, dtype)
+    kv = None if source is None else torch.from_numpy(
+        rng.normal(size=(B, Nk, 2 * C)).astype(np.float32)).to(cuda, dtype)
+    mask = key_mask(mask_kind, Nk, rng)
+    plan = key_tile_plan(mask)
+    assert plan["dead"] > 0 or mask_kind == "none"
+    with full_fp32():
+        ref = fused_qkv_attention_plain(qkv, H, d ** -0.5, mask.to(cuda), kv=kv)
+    if dtype == torch.bfloat16:
+        dead = torch.ones(Nk, dtype=torch.bool)
+        for j in plan["walk"]:
+            dead[j * 128:(j + 1) * 128] = False
+        if kv is None:
+            qkv = qkv.clone()
+            qkv[:, dead.to(cuda), C:] = float("nan")  # keys and values, not the queries
+        else:
+            kv = kv.clone()
+            kv[:, dead.to(cuda)] = float("nan")
+    out = fused_qkv_attention(qkv, H, d ** -0.5, mask.to(cuda), kv=kv)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (B, N, C)
+    tol = 1e-4 if dtype == torch.float32 else bf16_tol(ref.float())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,Nk", [(128, 13000), (96, 66000)])
+def test_attention_long_key_masks_on_gpu(rng, cuda, d, Nk):
+    """A key mask over so many keys that the bf16 kernel's plan does not fit
+    beside its full K/V ring (beyond about 12,500 keys at d 120-128, 65,000
+    at d 88-96), so the launch takes the two-stage ring: 150 queries of 2
+    heads against a slim kv= source, every other key tile dead."""
+    B, N, H = 1, 150, 2
+    C = H * d
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(cuda,
+                                                                                torch.bfloat16)
+    kv = torch.from_numpy(rng.normal(size=(B, Nk, 2 * C)).astype(np.float32)).to(cuda,
+                                                                               torch.bfloat16)
+    mask = key_mask("striped", Nk, rng).to(cuda)
+    out = fused_qkv_attention(qkv, H, d ** -0.5, mask, kv=kv)
+    torch.cuda.synchronize()
+    ref = fused_qkv_attention_plain(qkv, H, d ** -0.5, mask, kv=kv)
+    torch.testing.assert_close(out.float(), ref.float(), atol=bf16_tol(ref.float()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_attention_builds_neither_spill_nor_serialise_on_gpu(cuda, tmp_path, monkeypatch):
+    """Every head dim's build, compiled afresh: ptxas reports no spill and
+    no C75xx advisory (a serialised or fenced wgmma) for the bf16 or the
+    float32 kernel."""
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    logs = cuda_build.build([cuda_build.spec("fused_qkv_attention", HEAD_DIM=d)
+                             for d in HEAD_DIMS])
+    assert len(logs) == len(HEAD_DIMS)
+    assert cuda_build.ptxas_faults(logs, cuda_build.ATTENTION_KERNELS) == {}
 
 
 @pytest.mark.gpu
