@@ -18,11 +18,18 @@ mesh (get_mesh; under slam.distributed, every rank of the group). Only rank
 0 keeps the raw frames and writes artifacts. The streams decode frames
 ahead of the loop on worker processes; the loop's wait for each frame is
 the timer's "stream" stage.
+
+The run records the process tracer's spans (utils/profiling.py) and logs
+their tree at the end, host and self ms by span, device ms of the stages,
+with no synchronize on the way; with profile_dir, the spans of the profiled
+frames are written beside the profiler's trace.json as spans.json, on its
+timeline.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import time
@@ -114,14 +121,19 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from batrack_tpu_torch.utils.config import load_config, resolve_device
+    from batrack_tpu_torch.utils.profiling import tracer
 
     cfg = load_config(args.config, args.overrides)
     device = resolve_device(args.device)
     owns_group = not torch.distributed.is_initialized()
     mesh = _make_mesh(cfg, device)
+    timer = tracer()
+    timer.reset()
+    enabled, timer.enabled = timer.enabled, True
     try:
         return _run(cfg, args.seed, device, mesh)
     finally:
+        timer.enabled = enabled
         if owns_group and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
@@ -174,7 +186,6 @@ def _run(cfg, seed: int, device: torch.device, mesh) -> int:
             if slam is None:
                 ht, wd = image.shape[:2]
                 slam = BATrack(cfg, ht, wd, seed=seed, device=device, mesh=mesh)
-                slam.timer.enabled = True
                 if cfg.save_video:
                     slam.visualizer = TrackVisualizer(
                         save_dir=os.path.join(cfg.data.savedir, cfg.data.name),
@@ -194,12 +205,12 @@ def _run(cfg, seed: int, device: torch.device, mesh) -> int:
             item = (t, dev_img, dev_depth, intrinsics, image)
             if pending is not None:
                 if cfg.profile_dir and nf == PROFILE_FRAMES[0]:
-                    prof = _start_profile()
+                    prof, prof_ns = _start_profile(), time.time_ns()
                     logger.info("profiler trace -> %s (frames %d-%d)", cfg.profile_dir,
                                 PROFILE_FRAMES[0], PROFILE_FRAMES[1] - 1)
                 slam(*pending)
                 if prof is not None and nf == PROFILE_FRAMES[1]:
-                    prof = _stop_profile(prof, cfg.profile_dir, rank0)
+                    prof = _stop_profile(prof, cfg.profile_dir, rank0, slam.timer, prof_ns)
             pending = item
             waited = time.perf_counter()
     finally:
@@ -212,12 +223,13 @@ def _run(cfg, seed: int, device: torch.device, mesh) -> int:
     if pending is not None:
         slam(*pending)
     if prof is not None:
-        _stop_profile(prof, cfg.profile_dir, rank0)
+        _stop_profile(prof, cfg.profile_dir, rank0, slam.timer, prof_ns)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total = time.time() - start
     logger.info("Total time: %.2f s | FPS: %.2f | s/frame: %.4f", total, nf / total, total / nf)
-    logger.info("stage timings:\n%s", slam.timer.report())
+    slam.timer.resolve()
+    logger.info("stage timings:\n%s", slam.timer.report(tree=True))
 
     pred_traj = slam.terminate()
 
@@ -274,11 +286,22 @@ def _start_profile():
     return prof
 
 
-def _stop_profile(prof, profile_dir: str, rank0: bool) -> None:
+def _stop_profile(prof, profile_dir: str, rank0: bool, timer, since_ns: int) -> None:
+    """Ends the profile and writes trace.json and, beside it, spans.json:
+    the timer's spans since `since_ns`, as Chrome-trace events on
+    trace.json's time base."""
+    from batrack_tpu_torch.utils.profiling import chrome_events
+
     prof.stop()
     if rank0:
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            base = json.load(f).get("baseTimeNanoseconds", 0)
+        with open(os.path.join(profile_dir, "spans.json"), "w") as f:
+            json.dump({"traceEvents": chrome_events(timer.spans, base, since_ns),
+                       "baseTimeNanoseconds": base}, f)
 
 
 if __name__ == "__main__":

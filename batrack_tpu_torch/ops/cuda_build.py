@@ -28,6 +28,8 @@ from typing import Dict, Iterable, List, Tuple, Union
 
 import torch
 
+from batrack_tpu_torch.utils.profiling import tracer
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,6 +108,11 @@ def build(items: Iterable[Union[str, Spec]]) -> Dict[str, str]:
     Returns each build's compiler output (register and shared-memory use
     from -Xptxas -v), keyed by its library's name without lib and .so
     (e.g. "fused_qkv_attention_d64"). Raises if any build fails."""
+    with tracer().span("setup.kernels"):
+        return _build(items)
+
+
+def _build(items: Iterable[Union[str, Spec]]) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for s in dict.fromkeys(_as_spec(i) for i in items):
@@ -114,6 +121,7 @@ def build(items: Iterable[Union[str, Spec]]) -> Dict[str, str]:
         tmp = lib_path(s).with_suffix(f".so.tmp{os.getpid()}")
         procs[s] = (subprocess.Popen(command(s, tmp), stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
+    tracer().count("cuda_build.builds", len(procs))
     logs, failed = {}, []
     for s, (proc, tmp) in procs.items():
         logs[_label(s)] = proc.communicate()[0]
@@ -172,8 +180,11 @@ def load(name: str, **widths: int) -> ctypes.CDLL:
     s = spec(name, **widths)
     lib = _loaded.get(s)
     if lib is None:
-        build([s])
-        lib = ctypes.CDLL(str(lib_path(s)))
+        tr = tracer()
+        with tr.span("setup.kernels"):
+            _build([s])
+            lib = ctypes.CDLL(str(lib_path(s)))
+        tr.count("cuda_build.loads")
         _loaded[s] = lib
     return lib
 

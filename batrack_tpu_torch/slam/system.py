@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import logging
 import pickle
 from typing import Callable, Dict, List, Optional, Tuple
@@ -51,7 +52,7 @@ from batrack_tpu_torch.slam.keyframe import (
 from batrack_tpu_torch.slam.state import StaticDims, init_state
 from batrack_tpu_torch.slam.update import update_point_cloud, slam_update
 from batrack_tpu_torch.utils.config import Config, full_fp32, resolve_device
-from batrack_tpu_torch.utils.profiling import StageTimer
+from batrack_tpu_torch.utils.profiling import tracer
 
 TrackerFn = Callable[[TrackerInput], TrackerOutput]
 # (frame counter) -> the (x, y) random arrays the patch generator consumes
@@ -59,6 +60,9 @@ DrawHook = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 
 
 logger = logging.getLogger(__name__)
+
+# the sequence half of each frame's id in the tracer: one per BATrack
+_SEQUENCE_IDS = itertools.count()
 
 
 class BATrack:
@@ -75,6 +79,11 @@ class BATrack:
         use the same. mesh: a parallel.mesh.Mesh on `device`
         (slam.mesh_devices, when set, must equal its size); None runs on
         one device."""
+        with tracer().span("sequence.init"):
+            self._init(cfg, ht, wd, tracker, seed, device, mesh)
+
+    def _init(self, cfg: Config, ht: int, wd: int, tracker: Optional[TrackerFn], seed: int,
+              device, mesh) -> None:
         self.device = resolve_device(device)
         self.mesh = mesh
         slam = cfg.slam
@@ -137,7 +146,11 @@ class BATrack:
         self.delta: Dict[int, Tuple[int, np.ndarray]] = {}
         self.ring_overflow_count = 0
         self._last_append_n: Optional[int] = None  # cross-append fmap reuse
-        self.timer = StageTimer(enabled=False)
+        # stage spans: the process's tracer unless a caller assigns its own
+        # StageTimer; the stage spans record CUDA event pairs on the card
+        self.timer = tracer()
+        self.sequence = next(_SEQUENCE_IDS)
+        self._device_spans = self.device.type == "cuda"
 
     # ------------------------------------------------------------------
     def _to_device(self, x, dtype) -> torch.Tensor:
@@ -149,15 +162,16 @@ class BATrack:
         ahead of __call__, so that the copy overlaps the current frame's
         work, and pass the tensors it returns to __call__ in place of the
         numpy arrays (the JAX package's BATrack.upload_frame)."""
-        image = np.asarray(image)
-        if image.dtype != np.uint8:
-            image = np.clip(image, 0, 255).astype(np.uint8)
-        img = torch.from_numpy(np.ascontiguousarray(image))
-        dep = torch.from_numpy(np.ascontiguousarray(depth, dtype=np.float32))
-        if self.device.type == "cuda":
-            img, dep = img.pin_memory(), dep.pin_memory()
-        return (img.to(self.device, non_blocking=True),
-                dep.to(self.device, non_blocking=True))
+        with tracer().span("upload"):
+            image = np.asarray(image)
+            if image.dtype != np.uint8:
+                image = np.clip(image, 0, 255).astype(np.uint8)
+            img = torch.from_numpy(np.ascontiguousarray(image))
+            dep = torch.from_numpy(np.ascontiguousarray(depth, dtype=np.float32))
+            if self.device.type == "cuda":
+                img, dep = img.pin_memory(), dep.pin_memory()
+            return (img.to(self.device, non_blocking=True),
+                    dep.to(self.device, non_blocking=True))
 
     def __call__(self, tstamp, image, depth, intrinsics, host_image=None) -> None:
         """Track one frame. image: (H, W, 3) uint8 (other types are clipped
@@ -167,6 +181,15 @@ class BATrack:
         returns. host_image: the same frame as a numpy array, for the host
         work (sift patches, the track video) when `image` is already on the
         device; without it that work copies the device frame back."""
+        timer, process = self.timer, tracer()
+        timer.frame = process.frame = (self.sequence, self.counter)
+        try:
+            with timer.span("frame"):
+                self._frame(tstamp, image, depth, intrinsics, host_image)
+        finally:
+            timer.frame = process.frame = None
+
+    def _frame(self, tstamp, image, depth, intrinsics, host_image) -> None:
         if (self.n + 1) >= self.dims.N:
             raise RuntimeError(
                 f"Buffer size {self.dims.N} exhausted; increase slam.BUFFER_SIZE")
@@ -194,13 +217,13 @@ class BATrack:
                                self.dims.wd, self.generator)
         coords_override = None
         if slam.PATCH_GEN == "sift":
-            with self.timer.timed("sift"):
+            with self.timer.span("sift"):
                 coords_override = torch.from_numpy(generate_patches_sift(
                     image_np, M=self.dims.M, ht=self.dims.ht, wd=self.dims.wd,
                     rng=self._np_rng)).to(self.device)
         mark_valid = (self.n % slam.kf_stride == 0) and not self.is_initialized
         with full_fp32():
-            with self.timer.timed("ingest"):
+            with self.timer.span("ingest", device=self._device_spans):
                 ingest_frame(
                     self.state, image, depth, intrinsics, self.n, self.counter,
                     self.dims, patch_gen=slam.PATCH_GEN,
@@ -221,7 +244,7 @@ class BATrack:
             elif self.is_initialized:
                 self.update()
                 if slam.use_keyframe and (self.n - 1) % slam.kf_stride == 0:
-                    with self.timer.timed("keyframe"):
+                    with self.timer.span("keyframe"):
                         self._keyframe()
 
     @staticmethod
@@ -281,11 +304,12 @@ class BATrack:
             self.tracker.reuse_hint = shift
         slot = self._alloc_slot()
         slam = self.cfg.slam
-        with self.timer.timed("build_input"):
+        device = self._device_spans
+        with self.timer.span("build_input", device=device):
             tin = build_tracker_input(self.state, self.n, self.dims)
-        with self.timer.timed("tracker"):
+        with self.timer.span("tracker", device=device):
             tout = self.tracker(tin)
-        with self.timer.timed("gate_append"):
+        with self.timer.span("gate_append", device=device):
             gate_and_append(
                 self.state, tin, tout, self.n, slot, self.dims,
                 vis_threshold=slam.VIS_THRESHOLD,
@@ -297,7 +321,7 @@ class BATrack:
         self.append_count += 1
         self._last_append_n = self.n
         if self.visualizer is not None:
-            with self.timer.timed("track_video"):
+            with self.timer.span("track_video"):
                 self.visualizer.add_track(self._track_payload(slot))
 
     def _track_payload(self, slot: int) -> dict:
@@ -314,7 +338,7 @@ class BATrack:
                 "static": packed[..., 3]}
 
     def update(self) -> None:
-        with full_fp32(), self.timer.timed("ba_update"):
+        with full_fp32(), self.timer.span("ba_update", device=self._device_spans):
             self._update_fn(self.state, self.n, self.is_initialized, self.dims, self.cfg.slam)
 
     def _keyframe(self) -> None:
@@ -383,9 +407,10 @@ class BATrack:
     def terminate(self) -> Tuple[np.ndarray, np.ndarray]:
         """Final camera-to-world TUM trajectory: (poses (C, 7)
         [tx ty tz qw qx qy qz], tstamps (C,))."""
-        poses = se3.inv(torch.from_numpy(self._full_traj())).numpy()  # w2c -> c2w
-        poses = poses[:, [0, 1, 2, 6, 3, 4, 5]]
-        return poses, np.asarray(self.tlist, dtype=float)
+        with self.timer.span("sequence.terminate"):
+            poses = se3.inv(torch.from_numpy(self._full_traj())).numpy()  # w2c -> c2w
+            poses = poses[:, [0, 1, 2, 6, 3, 4, 5]]
+            return poses, np.asarray(self.tlist, dtype=float)
 
     def get_results(self, rgbs=None, dmaps=None, dmaps_gt=None,
                     save_path: Optional[str] = None) -> dict:

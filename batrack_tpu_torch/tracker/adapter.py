@@ -22,6 +22,7 @@ from batrack_tpu_torch.parallel.mesh import mesh_device
 from batrack_tpu_torch.slam.frontend import TrackerInput, TrackerOutput
 from batrack_tpu_torch.tracker.mdtracker import MDTracker, TrackerParams
 from batrack_tpu_torch.utils.config import ModelConfig, resolve_device
+from batrack_tpu_torch.utils.profiling import tracer
 
 
 class MDTrackerAdapter:
@@ -45,27 +46,28 @@ class MDTrackerAdapter:
         tracks are sharded over it. None runs on one device.
         backward_tracking: the second, flipped pass (the run_slam CLI turns
         it on only when S_slam > model.S, as the JAX CLI does)."""
-        self.backward_tracking = backward_tracking
-        self.device = resolve_device(device)
-        if mesh is not None:
-            self.device = mesh_device(mesh, self.device)
-        self.p = TrackerParams.from_config(model_cfg)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            model = MDTracker(self.p, mesh=mesh)
-        if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(device=self.device,
-                              dtype=getattr(torch, model_cfg.compute_dtype)).eval()
-        # static-branch merge (batrack.py:556-566); when both flags are off
-        # the branch's output is discarded, so it is not computed at all
-        self.use_static_mask = model_cfg.use_static_mask
-        self.use_static = model_cfg.use_static
-        self.static_threshold = static_threshold
-        # cross-append feature cache: BATrack sets reuse_hint to the window
-        # shift when consecutive appends share frames
-        self.reuse_hint: Optional[int] = None
-        self._fmap_cache: Optional[torch.Tensor] = None
+        with tracer().span("tracker.init"):
+            self.backward_tracking = backward_tracking
+            self.device = resolve_device(device)
+            if mesh is not None:
+                self.device = mesh_device(mesh, self.device)
+            self.p = TrackerParams.from_config(model_cfg)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                model = MDTracker(self.p, mesh=mesh)
+            if state_dict is not None:
+                model.load_state_dict(state_dict, strict=True)
+            self.model = model.to(device=self.device,
+                                  dtype=getattr(torch, model_cfg.compute_dtype)).eval()
+            # static-branch merge (batrack.py:556-566); when both flags are off
+            # the branch's output is discarded, so it is not computed at all
+            self.use_static_mask = model_cfg.use_static_mask
+            self.use_static = model_cfg.use_static
+            self.static_threshold = static_threshold
+            # cross-append feature cache: BATrack sets reuse_hint to the window
+            # shift when consecutive appends share frames
+            self.reuse_hint: Optional[int] = None
+            self._fmap_cache: Optional[torch.Tensor] = None
 
     def _prepare(self, window_rgbd, queries):
         ih, iw = self.p.interp_shape
@@ -90,35 +92,38 @@ class MDTrackerAdapter:
     @torch.no_grad()
     def forward(self, window_rgbd, queries, prev_fmaps=None, reuse: int = 0):
         """(TrackerOutput, fmaps) for one window; window_rgbd (S, 4, H, W)."""
+        tr = tracer()
         ih, iw = self.p.interp_shape
         H, W = window_rgbd.shape[-2:]
-        window, q = self._prepare(window_rgbd, queries)
+        with tr.span("tracker.prepare"):
+            window, q = self._prepare(window_rgbd, queries)
         static_iters = None if (self.use_static_mask or self.use_static) else 0
         traj, depth, static3d, vis, dyn, fmaps = self.model(
             window, q, prev_fmaps, reuse, static_iters=static_iters)
-        traj, depth = self._static_merge(traj, depth, static3d, dyn)
-        scale = torch.tensor([W / iw, H / ih], dtype=torch.float32, device=traj.device)
-        tracks = traj * scale
-        if self.backward_tracking:
-            # flip the window and the query times; slots the forward pass
-            # never reached (tracks == 0) take the reversed backward outputs.
-            # The backward pass encodes its own features: the forward fmaps
-            # carry per-window depth statistics, and reusing them reversed
-            # moves the tracks by ~0.3 px (the JAX package's measurement).
-            # The same model runs it, with the same static_iters argument
-            # (0 unless a static merge reads the static branch)
-            S = window.shape[0]
-            inv_q = q.clone()
-            inv_q[:, 0] = S - 1 - q[:, 0]
-            itraj, idepth, istatic3d, ivis, idyn, _ = self.model(
-                window.flip(0), inv_q, static_iters=static_iters)
-            itraj, idepth = self._static_merge(itraj, idepth, istatic3d, idyn)
-            mask = tracks == 0.0
-            tracks = torch.where(mask, itraj.flip(0) * scale, tracks)
-            m0 = mask[..., 0]
-            depth = torch.where(m0, idepth.flip(0), depth)
-            vis = torch.where(m0, ivis.flip(0), vis)
-            dyn = torch.where(m0, idyn.flip(0), dyn)
+        with tr.span("tracker.output"):
+            traj, depth = self._static_merge(traj, depth, static3d, dyn)
+            scale = torch.tensor([W / iw, H / ih], dtype=torch.float32, device=traj.device)
+            tracks = traj * scale
+            if self.backward_tracking:
+                # flip the window and the query times; slots the forward pass
+                # never reached (tracks == 0) take the reversed backward outputs.
+                # The backward pass encodes its own features: the forward fmaps
+                # carry per-window depth statistics, and reusing them reversed
+                # moves the tracks by ~0.3 px (the JAX package's measurement).
+                # The same model runs it, with the same static_iters argument
+                # (0 unless a static merge reads the static branch)
+                S = window.shape[0]
+                inv_q = q.clone()
+                inv_q[:, 0] = S - 1 - q[:, 0]
+                itraj, idepth, istatic3d, ivis, idyn, _ = self.model(
+                    window.flip(0), inv_q, static_iters=static_iters)
+                itraj, idepth = self._static_merge(itraj, idepth, istatic3d, idyn)
+                mask = tracks == 0.0
+                tracks = torch.where(mask, itraj.flip(0) * scale, tracks)
+                m0 = mask[..., 0]
+                depth = torch.where(m0, idepth.flip(0), depth)
+                vis = torch.where(m0, ivis.flip(0), vis)
+                dyn = torch.where(m0, idyn.flip(0), dyn)
         return TrackerOutput(tracks=tracks, depths=depth, vis=vis, dynamic=dyn), fmaps
 
     def __call__(self, tin: TrackerInput) -> TrackerOutput:

@@ -43,6 +43,7 @@ from batrack_tpu_torch.tracker.blocks import (
     UpdateFormer,
 )
 from batrack_tpu_torch.utils.config import ModelConfig
+from batrack_tpu_torch.utils.profiling import tracer
 
 
 class TrackerParams(NamedTuple):
@@ -157,21 +158,24 @@ class MDTracker(nn.Module):
         [0, Dz] grid units. Returns fmaps (S, C, H/4, W/4). z_stats: the full
         window's (zmin, zmax) when only part of the window is encoded.
         """
-        S, _, H, W = rgbs.shape
-        h4, w4 = H // self.p.stride, W // self.p.stride
-        fmaps = self.fnet(rgbs)
-        dev = rgbs.device
-        gxx = torch.arange(w4, dtype=torch.float32, device=dev)[None, None, :].expand(S, h4, w4)
-        gyy = torch.arange(h4, dtype=torch.float32, device=dev)[None, :, None].expand(S, h4, w4)
+        tr = tracer()
+        tr.count("tracker.encoded_frames", rgbs.shape[0])
+        with tr.span("tracker.encode"):
+            S, _, H, W = rgbs.shape
+            h4, w4 = H // self.p.stride, W // self.p.stride
+            fmaps = self.fnet(rgbs)
+            dev = rgbs.device
+            gxx = torch.arange(w4, dtype=torch.float32, device=dev)[None, None, :].expand(S, h4, w4)
+            gyy = torch.arange(h4, dtype=torch.float32, device=dev)[None, :, None].expand(S, h4, w4)
 
-        def norm01(v, stats=None):
-            vmin = v.min() if stats is None else stats[0]
-            vmax = v.max() if stats is None else stats[1]
-            return 2.0 * ((v - vmin) / torch.clamp(vmax - vmin, min=1e-12) - 0.5)
+            def norm01(v, stats=None):
+                vmin = v.min() if stats is None else stats[0]
+                vmax = v.max() if stats is None else stats[1]
+                return 2.0 * ((v - vmin) / torch.clamp(vmax - vmin, min=1e-12) - 0.5)
 
-        xyz = torch.stack([norm01(gxx), norm01(gyy), norm01(depths_dnG, z_stats)], dim=-1)
-        featPE = self.embed3d(xyz).permute(0, 3, 1, 2)     # (S, 63, h4, w4)
-        return self.embedConv(torch.cat([fmaps, featPE], dim=1))
+            xyz = torch.stack([norm01(gxx), norm01(gyy), norm01(depths_dnG, z_stats)], dim=-1)
+            featPE = self.embed3d(xyz).permute(0, 3, 1, 2)     # (S, 63, h4, w4)
+            return self.embedConv(torch.cat([fmaps, featPE], dim=1))
 
     # ------------------------------------------------------------------
     def forward_iteration(self, fmaps, coords_init, coords_dyn_init, feat_init,
@@ -191,48 +195,51 @@ class MDTracker(nn.Module):
         S, C, h4, w4 = fmaps.shape
         N = coords_init.shape[1]
         dev = fmaps.device
-        pyramid = build_pyramid(fmaps, p.corr_levels)
-        # corr_nsc(ffeats (N, S, C), coords (S, N, 2)) -> (N', S, LRR) for
-        # the N' tracks this rank works on: all of them, or its shard
-        if p.use_corr_kernel:
-            pyr = pack_pyramid(pyramid)  # bf16, packed once for all iterations
+        tr = tracer()
+        with tr.span("tracker.pyramid"):
+            pyramid = build_pyramid(fmaps, p.corr_levels)
+            # corr_nsc(ffeats (N, S, C), coords (S, N, 2)) -> (N', S, LRR) for
+            # the N' tracks this rank works on: all of them, or its shard
+            if p.use_corr_kernel:
+                pyr = pack_pyramid(pyramid)  # bf16, packed once for all iterations
 
-            def corr_nsc(ffeats_ns, cxy):
-                if mesh is not None:
-                    return corr_sample_pyramid_sharded(pyr, ffeats_ns.float(), cxy.float(),
-                                                       p.corr_radius, mesh)
-                return corr_sample(pyr, ffeats_ns.float(), cxy.float(), p.corr_radius)
-        else:
-            pyr32 = [fm.float() for fm in pyramid]
+                def corr_nsc(ffeats_ns, cxy):
+                    if mesh is not None:
+                        return corr_sample_pyramid_sharded(pyr, ffeats_ns.float(), cxy.float(),
+                                                           p.corr_radius, mesh)
+                    return corr_sample(pyr, ffeats_ns.float(), cxy.float(), p.corr_radius)
+            else:
+                pyr32 = [fm.float() for fm in pyramid]
 
-            def corr_nsc(ffeats_ns, cxy):
-                if mesh is not None:
-                    ffeats_ns, cxy = shard_rows(ffeats_ns, mesh), shard_rows(cxy, mesh, 1)
-                fc = corr_sample_pyramid(pyr32, ffeats_ns.float().transpose(0, 1),
-                                         cxy, p.corr_radius)
-                return fc.transpose(0, 1)
+                def corr_nsc(ffeats_ns, cxy):
+                    if mesh is not None:
+                        ffeats_ns, cxy = shard_rows(ffeats_ns, mesh), shard_rows(cxy, mesh, 1)
+                    fc = corr_sample_pyramid(pyr32, ffeats_ns.float().transpose(0, 1),
+                                             cxy, p.corr_radius)
+                    return fc.transpose(0, 1)
+        with tr.span("tracker.pos_embed"):
+            if mesh is not None and (key_mask is not None or N % mesh.size):
+                # this rank's keys; padded tracks are masked out of every softmax
+                full = torch.ones(N, dtype=torch.bool, device=dev) if key_mask is None else key_mask
+                key_mask = shard_rows(full, mesh)
 
-        if mesh is not None and (key_mask is not None or N % mesh.size):
-            # this rank's keys; padded tracks are masked out of every softmax
-            full = torch.ones(N, dtype=torch.bool, device=dev) if key_mask is None else key_mask
-            key_mask = shard_rows(full, mesh)
+            # track features stay track-major (N, S, C), the transformer layout
+            ffeats = feat_init.transpose(0, 1)
+            ffeats_static = ffeats
 
-        # track features stay track-major (N, S, C), the transformer layout
-        ffeats = feat_init.transpose(0, 1)
-        ffeats_static = ffeats
+            with tr.span("tracker.pos_table"):      # the numpy table alone, host
+                table = get_2d_sincos_pos_embed(p.input_dim, (h4, w4))
+            pos_grid = torch.as_tensor(table, dtype=torch.float32, device=dev).reshape(
+                h4, w4, p.input_dim).permute(2, 0, 1)[None]
 
-        pos_grid = torch.as_tensor(
-            get_2d_sincos_pos_embed(p.input_dim, (h4, w4)), dtype=torch.float32,
-            device=dev).reshape(h4, w4, p.input_dim).permute(2, 0, 1)[None]
+            def sample_pos(c0):  # (N, 2) grid units -> (N, E)
+                return bilinear_sample2d(pos_grid, c0[None, :, 0], c0[None, :, 1])[0].T
 
-        def sample_pos(c0):  # (N, 2) grid units -> (N, E)
-            return bilinear_sample2d(pos_grid, c0[None, :, 0], c0[None, :, 1])[0].T
-
-        pos_embed = sample_pos(coords_init[0, :, :2])
-        pos_embed_static = sample_pos((coords_init - coords_dyn_init)[0, :, :2])
-        times_embed = torch.as_tensor(
-            get_1d_sincos_pos_embed_from_grid(p.input_dim, np.linspace(0, p.S - 1, p.S)),
-            dtype=torch.float32, device=dev)
+            pos_embed = sample_pos(coords_init[0, :, :2])
+            pos_embed_static = sample_pos((coords_init - coords_dyn_init)[0, :, :2])
+            times_embed = torch.as_tensor(
+                get_1d_sincos_pos_embed_from_grid(p.input_dim, np.linspace(0, p.S - 1, p.S)),
+                dtype=torch.float32, device=dev)
 
         def denorm(c):
             out_xy = c[..., :2] * float(p.stride)
@@ -240,18 +247,21 @@ class MDTracker(nn.Module):
             return out_xy, out_d
 
         def one_iter(coords, ffeats_ns, pe, transformer):
-            fcorrs = corr_nsc(ffeats_ns, coords[..., :2])            # (N', S, LRR)
-            flows = (coords - coords[0:1]).transpose(0, 1)            # (N, S, 3)
-            cc = concat
-            if mesh is not None:
-                flows, ffeats_ns, cc, pe = (shard_rows(a, mesh)
-                                            for a in (flows, ffeats_ns, cc, pe))
-            flows_cat = self.zeroMLPflow(get_3d_embedding(flows, 64, cat_coords=True))
-            x = torch.cat([flows_cat.float(), fcorrs, ffeats_ns.float(), cc], dim=-1)
-            x = x + pe[:, None, :] + times_embed[None, :, :]
-            delta = transformer(x[None], key_mask)[0]                 # (N', S, C+3)
-            if mesh is not None:
-                delta = gather_rows(delta, mesh, N)
+            with tr.span("tracker.corr"):
+                fcorrs = corr_nsc(ffeats_ns, coords[..., :2])        # (N', S, LRR)
+            with tr.span("tracker.embed"):
+                flows = (coords - coords[0:1]).transpose(0, 1)        # (N, S, 3)
+                cc = concat
+                if mesh is not None:
+                    flows, ffeats_ns, cc, pe = (shard_rows(a, mesh)
+                                                for a in (flows, ffeats_ns, cc, pe))
+                flows_cat = self.zeroMLPflow(get_3d_embedding(flows, 64, cat_coords=True))
+                x = torch.cat([flows_cat.float(), fcorrs, ffeats_ns.float(), cc], dim=-1)
+                x = x + pe[:, None, :] + times_embed[None, :, :]
+            with tr.span("tracker.former"):
+                delta = transformer(x[None], key_mask)[0]             # (N', S, C+3)
+                if mesh is not None:
+                    delta = gather_rows(delta, mesh, N)
             return delta[..., :3].transpose(0, 1), delta[..., 3:]
 
         # GroupNorm(1, C) runs on flattened (N*S, C) rows, as in the
@@ -267,35 +277,38 @@ class MDTracker(nn.Module):
         for _ in range(p.iters):
             coords = coords.detach()
             d_coords, d_feats = one_iter(coords, ffeats, pos_embed, self.updateformer)
-            ffeats = feat_update(ffeats, d_feats)
-            coords = coords + d_coords
-            coord_pred, depth_pred = denorm(coords)
-            coord_preds.append(coord_pred)
-            depth_preds.append(depth_pred)
+            with tr.span("tracker.feat_update"):
+                ffeats = feat_update(ffeats, d_feats)
+                coords = coords + d_coords
+                coord_pred, depth_pred = denorm(coords)
+                coord_preds.append(coord_pred)
+                depth_preds.append(depth_pred)
 
-        vis_e = self.vis_predictor(ffeats)[..., 0].T               # (S, N) logits
-        dyn_logit = self.motion_label_block(ffeats[None])[0, :, 0]  # (N,)
-        dyn_mask = torch.sigmoid(dyn_logit)
-        if p.dynamic_mask_detach:
-            dyn_mask = dyn_mask.detach()
-
-        coords_total = coords.detach()
-        coords_dyn = coords_dyn_init
-        static_out = None
         n_static = p.static_iters if static_iters is None else static_iters
-        for _ in range(n_static):
-            coords_dyn = coords_dyn.detach()
-            coords_static = (coords_total - coords_dyn).detach()
-            d_coords, d_feats = one_iter(coords_static, ffeats_static, pos_embed_static,
-                                         self.updateformer_dyn)
-            ffeats_static = feat_update(ffeats_static, d_feats)
-            coords_dyn = coords_dyn + d_coords
-            out_xy, out_d = denorm(coords_total - coords_dyn * dyn_mask[None, :, None])
-            static_out = torch.cat([out_xy, out_d[..., None]], dim=-1)
-            static_preds.append(static_out)
-        if static_out is None:
-            out_xy, out_d = denorm(coords_total)
-            static_out = torch.cat([out_xy, out_d[..., None]], dim=-1)
+        with tr.span("tracker.heads"):
+            vis_e = self.vis_predictor(ffeats)[..., 0].T               # (S, N) logits
+            dyn_logit = self.motion_label_block(ffeats[None])[0, :, 0]  # (N,)
+            dyn_mask = torch.sigmoid(dyn_logit)
+            if p.dynamic_mask_detach:
+                dyn_mask = dyn_mask.detach()
+            coords_total = coords.detach()
+            if not n_static:
+                out_xy, out_d = denorm(coords_total)
+                static_out = torch.cat([out_xy, out_d[..., None]], dim=-1)
+
+        if n_static:
+            with tr.span("tracker.static"):
+                coords_dyn = coords_dyn_init
+                for _ in range(n_static):
+                    coords_dyn = coords_dyn.detach()
+                    coords_static = (coords_total - coords_dyn).detach()
+                    d_coords, d_feats = one_iter(coords_static, ffeats_static, pos_embed_static,
+                                                 self.updateformer_dyn)
+                    ffeats_static = feat_update(ffeats_static, d_feats)
+                    coords_dyn = coords_dyn + d_coords
+                    out_xy, out_d = denorm(coords_total - coords_dyn * dyn_mask[None, :, None])
+                    static_out = torch.cat([out_xy, out_d[..., None]], dim=-1)
+                    static_preds.append(static_out)
         return (coord_pred, depth_pred, static_out, vis_e, dyn_logit,
                 (coord_preds, depth_preds, static_preds))
 
@@ -324,141 +337,146 @@ class MDTracker(nn.Module):
         raise when autograd records, since the kernels have no backward.
         """
         p = self.p
-        T, _, H, W = rgbds.shape
-        N = queries.shape[0]
-        S = p.S
-        Dz = float(W // p.stride)
-        dev = rgbds.device
-        f32 = torch.float32
+        tr = tracer()
+        with tr.span("tracker.setup"):
+            T, _, H, W = rgbds.shape
+            N = queries.shape[0]
+            S = p.S
+            Dz = float(W // p.stride)
+            dev = rgbds.device
+            f32 = torch.float32
 
-        rgbs = 2.0 * (rgbds[:, :3] / 255.0) - 1.0
-        depth_all = self.depth_process(rgbds[:, 3])
-        if p.use_log_depth:
-            d_near, d_far = depth_all.min(), depth_all.max()
-        else:
-            ok = depth_all > 0.01
-            d_near = torch.where(ok, depth_all, torch.full_like(depth_all, float("inf"))).min()
-            d_far = torch.where(ok, depth_all, torch.full_like(depth_all, float("-inf"))).max()
-        # constant-depth windows would divide by zero (the reference does)
-        d_far = torch.maximum(d_far, d_near + 1e-3)
+            rgbs = 2.0 * (rgbds[:, :3] / 255.0) - 1.0
+            depth_all = self.depth_process(rgbds[:, 3])
+            if p.use_log_depth:
+                d_near, d_far = depth_all.min(), depth_all.max()
+            else:
+                ok = depth_all > 0.01
+                d_near = torch.where(ok, depth_all, torch.full_like(depth_all, float("inf"))).min()
+                d_far = torch.where(ok, depth_all, torch.full_like(depth_all, float("-inf"))).max()
+            # constant-depth windows would divide by zero (the reference does)
+            d_far = torch.maximum(d_far, d_near + 1e-3)
 
-        first_ind = queries[:, 0].to(torch.int32)
-        # the scrambled concat couples adjacent tracks of the sorted layout
-        # (sorted by first frame, md_tracker.py:426-431): build it there
-        sort_perm = torch.argsort(first_ind, stable=True)
-        inv_perm = torch.argsort(sort_perm)
+            first_ind = queries[:, 0].to(torch.int32)
+            # the scrambled concat couples adjacent tracks of the sorted layout
+            # (sorted by first frame, md_tracker.py:426-431): build it there
+            sort_perm = torch.argsort(first_ind, stable=True)
+            inv_perm = torch.argsort(sort_perm)
 
-        q_xy = queries[:, 1:3] / float(p.stride)
-        q_d = (self.depth_process(queries[:, 3]) - d_near) / (d_far - d_near) * Dz
-        coords0 = torch.cat([q_xy, q_d[:, None]], dim=-1)
+            q_xy = queries[:, 1:3] / float(p.stride)
+            q_d = (self.depth_process(queries[:, 3]) - d_near) / (d_far - d_near) * Dz
+            coords0 = torch.cat([q_xy, q_d[:, None]], dim=-1)
 
-        n_wind = max(1, int(np.ceil((T - S // 2) / (S // 2))))
-        depths_dn = depth_all[:, :: p.stride, :: p.stride]
-        depths_dn = (depths_dn - d_near) / (d_far - d_near) * Dz
+            n_wind = max(1, int(np.ceil((T - S // 2) / (S // 2))))
+            depths_dn = depth_all[:, :: p.stride, :: p.stride]
+            depths_dn = (depths_dn - d_near) / (d_far - d_near) * Dz
 
-        traj_e = torch.zeros((T, N, 2), dtype=f32, device=dev)
-        depth_e = torch.zeros((T, N), dtype=f32, device=dev)
-        static_e = torch.zeros((T, N, 3), dtype=f32, device=dev)
-        vis_e = torch.zeros((T, N), dtype=f32, device=dev)
-        dyn_e = torch.zeros((T, N), dtype=f32, device=dev)
+            traj_e = torch.zeros((T, N, 2), dtype=f32, device=dev)
+            depth_e = torch.zeros((T, N), dtype=f32, device=dev)
+            static_e = torch.zeros((T, N, 3), dtype=f32, device=dev)
+            vis_e = torch.zeros((T, N), dtype=f32, device=dev)
+            dyn_e = torch.zeros((T, N), dtype=f32, device=dev)
 
-        coords_init = coords0[None].expand(S, N, 3)
-        coords_dyn_init = torch.zeros((S, N, 3), dtype=f32, device=dev)
-        vis_init = torch.full((S, N), 10.0, dtype=f32, device=dev)
-        feat_init = torch.zeros((S, N, p.latent_dim), dtype=f32, device=dev)
-        prev_active = torch.zeros((N,), dtype=torch.bool, device=dev)
-        fmaps = None
+            coords_init = coords0[None].expand(S, N, 3)
+            coords_dyn_init = torch.zeros((S, N, 3), dtype=f32, device=dev)
+            vis_init = torch.full((S, N), 10.0, dtype=f32, device=dev)
+            feat_init = torch.zeros((S, N, p.latent_dim), dtype=f32, device=dev)
+            prev_active = torch.zeros((N,), dtype=torch.bool, device=dev)
+            fmaps = None
 
         train_windows = []
         for w in range(n_wind):
-            ind = w * (S // 2)
-            frame_ids = torch.as_tensor(np.clip(ind + np.arange(S), 0, T - 1), device=dev)
-            zwin = depths_dn[frame_ids]
-            z_stats = (zwin.min(), zwin.max())
-            if fmaps is None and prev_fmaps is not None and reuse >= S:
-                fmaps = prev_fmaps
-            elif fmaps is None and prev_fmaps is not None and reuse > 0:
-                new_ids = frame_ids[S - reuse:]
-                fm_new = self.encode_window(rgbs[new_ids], depths_dn[new_ids], z_stats)
-                fmaps = torch.cat([prev_fmaps[reuse:], fm_new], dim=0)
-            elif fmaps is None:
-                fmaps = self.encode_window(rgbs[frame_ids], depths_dn[frame_ids])
-            else:
-                new_ids = frame_ids[S // 2:]
-                fm_new = self.encode_window(rgbs[new_ids], depths_dn[new_ids], z_stats)
-                fmaps = torch.cat([fmaps[S // 2:], fm_new], dim=0)
+            tr.count("tracker.windows")
+            with tr.span("tracker.window"):
+                ind = w * (S // 2)
+                frame_ids = torch.as_tensor(np.clip(ind + np.arange(S), 0, T - 1), device=dev)
+                zwin = depths_dn[frame_ids]
+                z_stats = (zwin.min(), zwin.max())
+                if fmaps is None and prev_fmaps is not None and reuse >= S:
+                    fmaps = prev_fmaps
+                elif fmaps is None and prev_fmaps is not None and reuse > 0:
+                    new_ids = frame_ids[S - reuse:]
+                    fm_new = self.encode_window(rgbs[new_ids], depths_dn[new_ids], z_stats)
+                    fmaps = torch.cat([prev_fmaps[reuse:], fm_new], dim=0)
+                elif fmaps is None:
+                    fmaps = self.encode_window(rgbs[frame_ids], depths_dn[frame_ids])
+                else:
+                    new_ids = frame_ids[S // 2:]
+                    fm_new = self.encode_window(rgbs[new_ids], depths_dn[new_ids], z_stats)
+                    fmaps = torch.cat([fmaps[S // 2:], fm_new], dim=0)
 
-            active = first_ind < ind + S
-            new = active & ~prev_active
+                active = first_ind < ind + S
+                new = active & ~prev_active
 
-            # features of newly active queries at their own first frame
-            rel = (first_ind - ind).clamp(0, S - 1)
-            fq = bilinear_sample_per_frame(fmaps.permute(0, 2, 3, 1), rel, coords0[:, :2])
-            feat_init = torch.where(new[None, :, None], fq.float()[None].expand(S, N, -1),
-                                    feat_init)
+                # features of newly active queries at their own first frame
+                rel = (first_ind - ind).clamp(0, S - 1)
+                fq = bilinear_sample_per_frame(fmaps.permute(0, 2, 3, 1), rel, coords0[:, :2])
+                feat_init = torch.where(new[None, :, None], fq.float()[None].expand(S, N, -1),
+                                        feat_init)
 
-            # track mask: real frame, at/after the query's first frame, and
-            # not consumed by the previous window (second half only)
-            t_ids = torch.as_tensor(ind + np.arange(S), device=dev)
-            tm = (t_ids[:, None] >= first_ind[None, :]) & (t_ids < T)[:, None]
-            tm = tm & active[None, :]
-            if w > 0:
-                second_half = (torch.arange(S, device=dev) >= S // 2)[:, None]
-                tm = tm & (second_half | ~prev_active[None, :])
-            track_mask = tm.to(f32)
+                # track mask: real frame, at/after the query's first frame, and
+                # not consumed by the previous window (second half only)
+                t_ids = torch.as_tensor(ind + np.arange(S), device=dev)
+                tm = (t_ids[:, None] >= first_ind[None, :]) & (t_ids < T)[:, None]
+                tm = tm & active[None, :]
+                if w > 0:
+                    second_half = (torch.arange(S, device=dev) >= S // 2)[:, None]
+                    tm = tm & (second_half | ~prev_active[None, :])
+                track_mask = tm.to(f32)
 
-            cnt = active.to(torch.int64).sum()
-            concat = _scrambled_concat(track_mask[:, sort_perm], vis_init[:, sort_perm],
-                                       cnt)[inv_perm]
-            key_mask = active if n_wind > 1 else None
+                cnt = active.to(torch.int64).sum()
+                concat = _scrambled_concat(track_mask[:, sort_perm], vis_init[:, sort_perm],
+                                           cnt)[inv_perm]
+                key_mask = active if n_wind > 1 else None
 
             coord_p, depth_p, static_p, vis_p, dyn_logit, iter_preds = self.forward_iteration(
                 fmaps, coords_init, coords_dyn_init, feat_init, concat,
                 d_near, d_far, Dz, key_mask, static_iters)
-            vis_p = vis_p.float()
-            dyn_logit = dyn_logit.float()
-            if train:
-                cps, dps, sps = iter_preds
-                train_windows.append({
-                    "ind": ind, "active": active, "track_mask": track_mask,
-                    "coords": torch.stack(cps), "depths": torch.stack(dps),
-                    "statics": (torch.stack(sps) if sps
-                                else torch.zeros((0, S, N, 3), dtype=f32, device=dev)),
-                    "vis_logits": vis_p, "dyn_logits": dyn_logit,
-                })
+            with tr.span("tracker.merge"):
+                vis_p = vis_p.float()
+                dyn_logit = dyn_logit.float()
+                if train:
+                    cps, dps, sps = iter_preds
+                    train_windows.append({
+                        "ind": ind, "active": active, "track_mask": track_mask,
+                        "coords": torch.stack(cps), "depths": torch.stack(dps),
+                        "statics": (torch.stack(sps) if sps
+                                    else torch.zeros((0, S, N, 3), dtype=f32, device=dev)),
+                        "vis_logits": vis_p, "dyn_logits": dyn_logit,
+                    })
 
-            # window results into the global timeline for active queries
-            S_live = min(S, T - ind)
-            tl = slice(ind, ind + S_live)
-            a2 = active[None, :]
-            traj_e[tl] = torch.where(a2[..., None], coord_p[:S_live], traj_e[tl])
-            depth_e[tl] = torch.where(a2, depth_p[:S_live], depth_e[tl])
-            static_e[tl] = torch.where(a2[..., None], static_p[:S_live], static_e[tl])
-            vis_e[tl] = torch.where(a2, vis_p[:S_live], vis_e[tl])
-            dyn_e[tl] = torch.where(a2, dyn_logit[None, :], dyn_e[tl])
+                # window results into the global timeline for active queries
+                S_live = min(S, T - ind)
+                tl = slice(ind, ind + S_live)
+                a2 = active[None, :]
+                traj_e[tl] = torch.where(a2[..., None], coord_p[:S_live], traj_e[tl])
+                depth_e[tl] = torch.where(a2, depth_p[:S_live], depth_e[tl])
+                static_e[tl] = torch.where(a2[..., None], static_p[:S_live], static_e[tl])
+                vis_e[tl] = torch.where(a2, vis_p[:S_live], vis_e[tl])
+                dyn_e[tl] = torch.where(a2, dyn_logit[None, :], dyn_e[tl])
 
-            # hand off window state (md_tracker.py:580-615), including the
-            # reference's double /stride on the dynamic component
-            if w + 1 < n_wind:
-                half = S // 2
-                new_xy = coord_p[half:] / float(p.stride)
-                new_d = (self.depth_process(depth_p[half:]) - d_near) / (d_far - d_near) * Dz
-                new_coords = torch.cat([new_xy, new_d[..., None]], dim=-1)
-                carried = torch.cat([new_coords, new_coords[-1:].expand(half, N, 3)], dim=0)
-                coords_init = torch.where(active[None, :, None], carried, coords_init)
+                # hand off window state (md_tracker.py:580-615), including the
+                # reference's double /stride on the dynamic component
+                if w + 1 < n_wind:
+                    half = S // 2
+                    new_xy = coord_p[half:] / float(p.stride)
+                    new_d = (self.depth_process(depth_p[half:]) - d_near) / (d_far - d_near) * Dz
+                    new_coords = torch.cat([new_xy, new_d[..., None]], dim=-1)
+                    carried = torch.cat([new_coords, new_coords[-1:].expand(half, N, 3)], dim=0)
+                    coords_init = torch.where(active[None, :, None], carried, coords_init)
 
-                dyn_xy = (new_xy - static_p[half:, :, :2]) / float(p.stride)
-                dyn_d0 = new_d - static_p[half:, :, 2]
-                dyn_d = (self.depth_process(dyn_d0) - d_near) / (d_far - d_near) * Dz
-                new_dyn = torch.cat([dyn_xy, dyn_d[..., None]], dim=-1)
-                carried_dyn = torch.cat([new_dyn, new_dyn[-1:].expand(half, N, 3)], dim=0)
-                coords_dyn_init = torch.where(active[None, :, None], carried_dyn,
-                                              coords_dyn_init)
+                    dyn_xy = (new_xy - static_p[half:, :, :2]) / float(p.stride)
+                    dyn_d0 = new_d - static_p[half:, :, 2]
+                    dyn_d = (self.depth_process(dyn_d0) - d_near) / (d_far - d_near) * Dz
+                    new_dyn = torch.cat([dyn_xy, dyn_d[..., None]], dim=-1)
+                    carried_dyn = torch.cat([new_dyn, new_dyn[-1:].expand(half, N, 3)], dim=0)
+                    coords_dyn_init = torch.where(active[None, :, None], carried_dyn,
+                                                  coords_dyn_init)
 
-                new_vis = vis_p[half:]
-                carried_vis = torch.cat([new_vis, new_vis[-1:].expand(half, N)], dim=0)
-                vis_init = torch.where(active[None, :], carried_vis, vis_init)
-            prev_active = active
+                    new_vis = vis_p[half:]
+                    carried_vis = torch.cat([new_vis, new_vis[-1:].expand(half, N)], dim=0)
+                    vis_init = torch.where(active[None, :], carried_vis, vis_init)
+                prev_active = active
 
         outputs = (traj_e, depth_e, static_e, torch.sigmoid(vis_e), torch.sigmoid(dyn_e), fmaps)
         if not train:
